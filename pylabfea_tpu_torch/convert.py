@@ -1,0 +1,92 @@
+"""Carry parameters and state into the port as tensors.
+
+The JAX package's device pytrees (``DeviceMaterial``, ``MeshData``,
+``SolverState``) cross over as dicts of numpy arrays plus their static
+fields, so the port never imports JAX; ``material_from_npz`` reads a
+trained SVC yield function saved as ``.npz`` (the ``REF_SOLVE_svc.npz``
+layout: support_vectors, dual_coef, intercept, gamma, scale_seq, sy, CV,
+dev_only, eps).
+"""
+import numpy as np
+import torch
+
+from pylabfea_tpu_torch.config import DTYPE_DEVICE
+from pylabfea_tpu_torch.ops.constitutive import DeviceMaterial
+from pylabfea_tpu_torch.ops.fe_kernels import MeshData, SolverState
+
+
+def material_from_params(params, is_svc, dev_only=False, sdim3=False,
+                         dtype=DTYPE_DEVICE, device=None):
+    """DeviceMaterial from the JAX ``DeviceMaterial`` leaves as numpy
+    arrays (keys: hill, sy, khard, drucker, sv, dc, rho, gamma, scale_seq,
+    and optionally scale_wh, feat_mean, feat_scale, tex, voce_r, voce_b)
+    and its static flags."""
+    sv = np.asarray(params['sv'])
+    if not is_svc:
+        raise NotImplementedError('analytic materials are not ported yet')
+    if sdim3 or sv.ndim != 2 or sv.shape[1] != 6:
+        raise NotImplementedError('only 6-D stress SVC features are ported '
+                                  f'(got sv {sv.shape}, sdim3={sdim3})')
+    if any(np.size(params.get(k, ())) for k in ('feat_mean', 'feat_scale',
+                                                 'tex')):
+        raise NotImplementedError('texture-conditioned SVC features are not '
+                                  'ported yet')
+
+    def ten(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    def num(k, default=None):
+        return float(np.asarray(params.get(k, default)))
+
+    return DeviceMaterial(
+        hill=ten(params['hill']), sv=ten(sv), dc=ten(params['dc']),
+        sy=num('sy'), khard=num('khard'), drucker=num('drucker'),
+        rho=num('rho'), gamma=num('gamma'), scale_seq=num('scale_seq'),
+        scale_wh=num('scale_wh', 1.), voce_r=num('voce_r', 0.),
+        voce_b=num('voce_b', 1.), is_svc=True, dev_only=bool(dev_only))
+
+
+def material_from_npz(path, dtype=DTYPE_DEVICE, device=None):
+    """The trained SVC material of an ``.npz`` file, uncompressed (every
+    support vector kept).  Returns (DeviceMaterial, CV (6, 6) float64
+    numpy, total strain ``eps`` of the workload)."""
+    with np.load(path) as z:
+        sy = float(z['sy'])
+        params = dict(hill=np.ones(6), sy=sy, khard=0., drucker=0.,
+                      sv=z['support_vectors'], dc=z['dual_coef'],
+                      rho=float(z['intercept']), gamma=float(z['gamma']),
+                      scale_seq=float(z['scale_seq']))
+        mat = material_from_params(params, is_svc=True,
+                                   dev_only=bool(z['dev_only']), dtype=dtype,
+                                   device=device)
+        return mat, np.asarray(z['CV'], dtype=np.float64), float(z['eps'])
+
+
+def mesh_from_arrays(arrays, grid, ndof, nel, groups=None,
+                     dtype=DTYPE_DEVICE, device=None):
+    """MeshData from the JAX ``MeshData`` leaves as numpy arrays (keys B,
+    Bsum, jacw, vel, fixed, fixed_val, force; ps_b2 when present) and its
+    static fields."""
+    if grid is None or np.ndim(arrays['B']) != 3:
+        raise NotImplementedError('only structured 2-D grids are ported')
+    if groups is not None or np.ndim(arrays.get('ps_b2', ())) == 3:
+        raise NotImplementedError('multi-material meshes are not ported yet')
+
+    def ten(k, dt=dtype):
+        return torch.as_tensor(np.array(arrays[k]), dtype=dt, device=device)
+
+    return MeshData(B=ten('B'), Bsum=ten('Bsum'), jacw=ten('jacw'),
+                    vel=ten('vel'), fixed=ten('fixed', torch.bool),
+                    fixed_val=ten('fixed_val'), force=ten('force'),
+                    ndof=int(ndof), nel=int(nel), grid=tuple(grid))
+
+
+def state_from_arrays(arrays, dtype=DTYPE_DEVICE, device=None):
+    """SolverState from numpy arrays u (2, nnX, nnY), sig/epl/eps (Nel, 6)
+    and elstiff in planes layout (36, NX, NY)."""
+    els = np.shape(arrays['elstiff'])
+    if len(els) != 3 or els[0] != 36:
+        raise ValueError('elstiff must be in planes layout (36, NX, NY)')
+    return SolverState(**{k: torch.as_tensor(np.array(arrays[k]),
+                                             dtype=dtype, device=device)
+                          for k in ('u', 'sig', 'epl', 'eps', 'elstiff')})

@@ -1,0 +1,412 @@
+"""Structured-grid FE operator and the split load step (subset of
+``pylabfea_tpu.ops.fe_kernels``).
+
+The solver never forms K: on a structured NX x NY bilinear-quad grid the
+operator is ``u -> K u`` over element stiffness planes (8, 8, NX, NY),
+applied by kernel B (``stencil.k_apply``; the plain version on the CPU).
+Nodal vectors are component-major planes (2, nnX, nnY), carried through the
+solvers as per-component tuples.  Displacement BCs are identity rows on
+fixed dofs (masking around the apply).
+
+Ported: single-material plane-strain meshes, the multigrid-preconditioned
+CG solve, the batched SVC return map and ``load_step_split`` with its
+warm-start/hierarchy-reuse protocol.  Plane stress, multi-material meshes,
+the convergence gate, f64/faithful commits and iterative refinement raise
+``NotImplementedError``.
+"""
+import dataclasses
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from pylabfea_tpu_torch.config import DTYPE_DEVICE
+from pylabfea_tpu_torch.ops import constitutive as con
+from pylabfea_tpu_torch.ops import stencil as st
+
+
+@dataclass
+class MeshData:
+    """Structured-mesh tensors of the solver (the JAX ``MeshData``,
+    structured single-material fields).  ``cache`` holds what is derived
+    once per mesh object (the multigrid coarse-mesh chain and transfer
+    matrices); ``dataclasses.replace`` starts a copy with an empty one."""
+    B: torch.Tensor          # (4, 6, 8) B matrices at the Gauss points
+    Bsum: torch.Tensor       # (6, 8) sum_g B (element-average strain)
+    jacw: torch.Tensor       # 0-d: Jacobian * Gauss weight
+    vel: torch.Tensor        # 0-d: element volume
+    fixed: torch.Tensor      # (2, nnX, nnY) bool displacement-BC mask
+    fixed_val: torch.Tensor  # (2, nnX, nnY) prescribed values (unit load)
+    force: torch.Tensor      # (2, nnX, nnY) external forces (unit load)
+    ndof: int
+    nel: int
+    grid: tuple              # (NX, NY, lx, ly, uniax)
+    cache: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
+
+    @property
+    def device(self):
+        return self.B.device
+
+    @property
+    def dtype(self):
+        return self.B.dtype
+
+
+def _quad_B(lx, ly, dtype=np.float64):
+    """B matrices of the bilinear quad at the 4 Gauss points (plane
+    strain)."""
+    cpos = np.sqrt(1. / 3.)
+    Bs = np.zeros((4, 6, 8), dtype=dtype)
+    for i in range(4):
+        sx = (-1) ** int(i / 2)
+        sy = (-1) ** i
+        x = 0.5 * (1. + sx * cpos) * lx
+        y = 0.5 * (1. + sy * cpos) * ly
+        xi1 = 2. * x / lx - 1.
+        xi2 = 2. * y / ly - 1.
+        hxm = 0.125 * (1. - xi1) / ly
+        hym = 0.125 * (1. - xi2) / lx
+        hxp = 0.125 * (1. + xi1) / ly
+        hyp = 0.125 * (1. + xi2) / lx
+        B = Bs[i]
+        B[0, 0] = -hym
+        B[0, 2] = -hyp
+        B[0, 4] = hym
+        B[0, 6] = hyp
+        B[1, 1] = -hxm
+        B[1, 3] = hxm
+        B[1, 5] = -hxp
+        B[1, 7] = hxp
+        B[5, 0] = -hxm
+        B[5, 1] = -hym
+        B[5, 2] = hxm
+        B[5, 3] = -hyp
+        B[5, 4] = -hxp
+        B[5, 5] = hym
+        B[5, 6] = hxp
+        B[5, 7] = hyp
+    return Bs
+
+
+def make_edge_bcs(NX, NY, left=None, right=None, bot=None, top=None,
+                  nodes=()):
+    """Structured-grid BC planes from edge specs: each edge maps a
+    component (0 = x, 1 = y) to ``(bctype, value)``, 'disp' (prescribed
+    displacement) or 'force' (total edge force, half weight at the end
+    nodes); ``nodes`` holds ``(ix, iy, comp, bctype, value)`` single-node
+    BCs.  Conflicting displacement BCs are first-come in the order left,
+    bottom, right, top, node set.  Returns numpy planes (fixed, fixed_val,
+    force) for a unit load factor."""
+    nnX, nnY = NX + 1, NY + 1
+    fixed = np.zeros((2, nnX, nnY), dtype=bool)
+    fval = np.zeros((2, nnX, nnY))
+    force = np.zeros((2, nnX, nnY))
+    sel = {'left': (0, slice(None)), 'right': (nnX - 1, slice(None)),
+           'bot': (slice(None), 0), 'top': (slice(None), nnY - 1)}
+
+    def apply_edge(which, spec):
+        if not spec:
+            return
+        ii, jj = sel[which]
+        n_edge = nnY if which in ('left', 'right') else nnX
+        for comp, (bctype, val) in spec.items():
+            if bctype == 'disp':
+                new = ~fixed[comp, ii, jj]
+                v = fval[comp, ii, jj]
+                v[new] = val
+                fval[comp, ii, jj] = v
+                fixed[comp, ii, jj] = True
+            elif bctype == 'force':
+                h = np.full(n_edge, 1. / max(n_edge - 1, 1))
+                h[0] *= 0.5
+                h[-1] *= 0.5
+                force[comp, ii, jj] += val * h
+            else:
+                raise ValueError(f'unknown bctype {bctype!r}')
+
+    for which, spec in (('left', left), ('bot', bot), ('right', right),
+                        ('top', top)):
+        apply_edge(which, spec)
+    for ix, iy, comp, bctype, val in nodes:
+        if bctype == 'disp':
+            if not fixed[comp, ix, iy]:
+                fixed[comp, ix, iy] = True
+                fval[comp, ix, iy] = val
+        else:
+            force[comp, ix, iy] += val
+    return fixed, fval, force
+
+
+def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
+              dtype=DTYPE_DEVICE, device=None, planestress=False,
+              eps_x=None, eps_y=None, bc=None, mat_map=None):
+    """Structured NX x NY quad mesh.  Default BCs: left fixed in x, bottom
+    fixed in y, top pulled in +y (``uniax='y'``), right pulled in +x
+    (``'x'``) or both (``'xy'``, magnitudes ``eps_x``/``eps_y``); ``bc``
+    (see ``make_edge_bcs``) replaces them.  ``fixed_val``/``force`` are
+    patterns for a unit load factor."""
+    if planestress:
+        raise NotImplementedError('plane-stress meshes are not ported yet')
+    if mat_map is not None:
+        raise NotImplementedError('multi-material meshes are not ported yet')
+    nnX, nnY = NX + 1, NY + 1
+    lx, ly = LX / NX, LY / NY
+    if bc is not None:
+        fixed, fixed_val, force = make_edge_bcs(
+            NX, NY, left=bc.get('left'), right=bc.get('right'),
+            bot=bc.get('bot'), top=bc.get('top'), nodes=bc.get('nodes', ()))
+        uniax = 'bc'
+    else:
+        fixed = np.zeros((2, nnX, nnY), dtype=bool)
+        fixed_val = np.zeros((2, nnX, nnY))
+        force = np.zeros((2, nnX, nnY))
+        fixed[0, 0, :] = True                   # left: ux = 0
+        fixed[1, :, 0] = True                   # bottom: uy = 0
+        ex = eps_tot if eps_x is None else eps_x
+        ey = eps_tot if eps_y is None else eps_y
+        if uniax in ('y', 'xy'):
+            fixed[1, :, -1] = True              # top: uy prescribed
+            fixed_val[1, :, -1] = ey * LY
+        if uniax in ('x', 'xy'):
+            fixed[0, -1, :] = True              # right: ux prescribed
+            fixed_val[0, -1, :] = ex * LX
+    Bs = _quad_B(lx, ly)
+    vel = lx * ly * thick
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+    return MeshData(B=dev(Bs), Bsum=dev(Bs.sum(axis=0)), jacw=dev(vel * 4.),
+                    vel=dev(vel), fixed=dev(fixed, torch.bool),
+                    fixed_val=dev(fixed_val), force=dev(force),
+                    ndof=2 * nnX * nnY, nel=NX * NY,
+                    grid=(NX, NY, lx, ly, uniax))
+
+
+# -----------------------------------------------------------------
+# plane operators
+# -----------------------------------------------------------------
+def _split(v):
+    """(2, nnX, nnY) planes -> per-component tuple."""
+    return (v[0], v[1])
+
+
+def _merge(t):
+    return torch.stack(t, 0)
+
+
+def _gather_planes(md: MeshData, v):
+    return st.gather_planes(v, *md.grid[:2])
+
+
+def _scatter_planes(md: MeshData, fp):
+    return st.scatter_planes(fp, *md.grid[:2])
+
+
+def elstiff_planes(md: MeshData, elstiff):
+    """Tangent field in planes layout (36, NX, NY); rows (Nel, 6, 6) are
+    transposed, planes pass through."""
+    if elstiff.dim() == 3 and elstiff.shape[0] == 36:
+        return elstiff
+    NX, NY = md.grid[:2]
+    return elstiff.reshape(md.nel, 36).T.reshape(36, NX, NY)
+
+
+def element_stiffness_planes(md: MeshData, elstiff):
+    """Element stiffness planes (8, 8, NX, NY): one (64, 36) geometry
+    matrix M[(i,j),(a,b)] = jacw sum_g B[g,a,i] B[g,b,j] against the
+    (36, NX*NY) tangent planes."""
+    NX, NY = md.grid[:2]
+    els = elstiff_planes(md, elstiff)
+    M = md.jacw * torch.einsum('gai,gbj->ijab', md.B, md.B)
+    Ke = M.reshape(64, 36) @ els.reshape(36, NX * NY)
+    return Ke.reshape(8, 8, NX, NY)
+
+
+def k_apply_t(md: MeshData, Kp, v, fixed):
+    """K v on plane tuples with identity rows on fixed dofs.  The apply is
+    kernel B on the card at every grid level (the plain version on the
+    CPU); the masking stays outside the kernel."""
+    vm = tuple(torch.where(f, 0., x) for f, x in zip(fixed, v))
+    out = st.k_apply(Kp, vm[0], vm[1])
+    return tuple(torch.where(f, x, o) for f, x, o in zip(fixed, v, out))
+
+
+def k_diag_t(md: MeshData, Kp, fixed):
+    """Diagonal of K as a plane tuple, 1 on fixed dofs."""
+    d = _scatter_planes(md, tuple(Kp[i, i] for i in range(8)))
+    return tuple(torch.where(f, 1., x) for f, x in zip(fixed, d))
+
+
+def _dot(a, b):
+    """Dot product of plane tuples."""
+    return sum(torch.sum(x * y) for x, y in zip(a, b))
+
+
+def _norm(a):
+    return torch.sqrt(_dot(a, a))
+
+
+def _axpy(a, x, y):
+    """a * x + y over plane tuples."""
+    return tuple(a * u + v for u, v in zip(x, y))
+
+
+def element_deps(md: MeshData, du):
+    """Element-average strain increments (Nel, 6) from the nodal
+    displacement increment (2, nnX, nnY)."""
+    up = _gather_planes(md, _split(du))
+    planes = [sum(md.Bsum[a, i] * up[i] for i in range(8)) for a in range(6)]
+    return torch.stack(planes, -1).reshape(md.nel, 6)
+
+
+def respond_grouped(md: MeshData, mat, CV, sig, epl, deps, fast=True,
+                    maxiter=12, nsub=1):
+    """Batched return map of a single-material mesh (one chunked
+    ``response_fast``).  Returns (f, sig, depl, tangent rows)."""
+    if not fast:
+        raise NotImplementedError('the reference-faithful return map is not '
+                                  'ported yet')
+    CVd = torch.as_tensor(CV, dtype=sig.dtype, device=sig.device)
+    return con.response_fast_chunked(mat, (sig, epl), deps, CVd, maxiter,
+                                     nsub)
+
+
+# -----------------------------------------------------------------
+# load step
+# -----------------------------------------------------------------
+@dataclass
+class SolverState:
+    u: torch.Tensor          # (2, nnX, nnY)
+    sig: torch.Tensor        # (Nel, 6)
+    epl: torch.Tensor        # (Nel, 6)
+    eps: torch.Tensor        # (Nel, 6)
+    elstiff: torch.Tensor    # (36, NX, NY) tangent planes
+
+
+def init_state(md: MeshData, CV, dtype=DTYPE_DEVICE):
+    """Virgin state with the elastic stiffness ``CV`` in every element."""
+    NX, NY = md.grid[:2]
+    CV = torch.as_tensor(CV, dtype=dtype, device=md.device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=md.device)
+
+    return SolverState(u=zeros(*md.fixed.shape), sig=zeros(md.nel, 6),
+                       epl=zeros(md.nel, 6), eps=zeros(md.nel, 6),
+                       elstiff=CV.reshape(36, 1, 1).expand(36, NX, NY))
+
+
+def _hier_kes(md: MeshData, elstiff):
+    """Per-level stiffness planes (+ dense bottom inverse) of the
+    multigrid hierarchy for a tangent field."""
+    from pylabfea_tpu_torch.ops import multigrid as mg
+    return mg.hierarchy_kes(mg.build_hierarchy(md, elstiff, attach_inv=False))
+
+
+def _mg_solve(md: MeshData, kes, bc_val, force, cg_tol, cg_maxiter, x0):
+    """Multigrid-preconditioned CG on K du = force with prescribed ``bc_val``
+    on fixed dofs, started from ``x0``.  Returns (du, rel. residual, iters)."""
+    from pylabfea_tpu_torch.ops import multigrid as mg
+    levels = mg.levels_from_kes(md, kes)
+    fixT = _split(md.fixed)
+    bcT = _split(bc_val)
+    du_bc = tuple(torch.where(f, b, 0.) for f, b in zip(fixT, bcT))
+    neg = st.k_apply(kes[0], du_bc[0], du_bc[1])
+    rhs = tuple(torch.where(f, b, fr - q)
+                for f, b, fr, q in zip(fixT, bcT, _split(force), neg))
+    start = tuple(torch.where(f, b, x)
+                  for f, b, x in zip(fixT, bcT, _split(x0)))
+    duT, res, it = mg.mg_cg_solve(levels, rhs, start, tol=cg_tol,
+                                  maxiter=min(cg_maxiter, 100))
+    return _merge(duT), res, it
+
+
+def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
+                        fast=True, nsub=4):
+    """Return map at the increment ``du`` and the tangent update: element
+    stiffnesses whose change exceeds 1e-3 (Frobenius) are replaced.
+    Returns (f, sig, depl, elstiff, deps, max change as a 0-d tensor)."""
+    deps = element_deps(md, du)
+    fy, sig_n, depl_n, grad = respond_grouped(
+        md, mat, CV, state.sig, state.epl, deps, fast=fast, maxiter=12,
+        nsub=nsub)
+    gP = elstiff_planes(md, grad)
+    dst = torch.sqrt(torch.sum((state.elstiff - gP) ** 2, dim=0))
+    elstiff = torch.where(dst > 1.e-3, gP, state.elstiff)
+    return fy, sig_n, depl_n, elstiff, deps, dst.max()
+
+
+def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
+                    n_inner=2, cg_tol=None, cg_maxiter=100, fast=True,
+                    nsub=4, du0=None, kes0=None, dst0=None, gate=False,
+                    n_refine=0, commit_f64=False, commit_faithful=False):
+    """One load step: ``n_inner + 1`` rounds of (MG-CG solve with the
+    current tangent field, return map, tangent update).
+
+    ``du0`` warm-starts the first solve (the previous step's ``diag['du']``
+    at equal load fractions); ``kes0``/``dst0`` pass the previous step's
+    hierarchy (``diag['kes']``) and its last tangent change
+    (``diag['dstiff']``): the hierarchy is rebuilt only when ``dst > 1e-3``
+    (the tangent field changed).  In float32 a warm start is used only when
+    the tangent did not change (a stale increment stalls f32 CG); float64
+    keeps it unconditionally.  Returns (new state, diag) with the JAX
+    ``diag`` keys."""
+    if gate or n_refine or commit_f64 or commit_faithful:
+        raise NotImplementedError('gate, n_refine, commit_f64 and '
+                                  'commit_faithful are not ported yet')
+    bc_val = md.fixed_val * load_frac
+    force = md.force * load_frac
+    elstiff = state.elstiff
+    f64 = elstiff.dtype == torch.float64
+    tol = cg_tol if cg_tol is not None else (1.e-11 if f64 else 1.e-6)
+    du, kes = du0, kes0
+    dst = None if dst0 is None else float(dst0)
+    cg_hist = []
+    for _ in range(n_inner + 1):
+        if kes is None or dst is None or dst > 1.e-3:
+            kes = _hier_kes(md, elstiff)
+        if du is None:
+            x0 = torch.zeros_like(bc_val)
+        elif dst is None or f64 or dst <= 1.e-3:
+            x0 = du
+        else:
+            x0 = torch.zeros_like(du)
+        du, cg_res, cg_it = _mg_solve(md, kes, bc_val, force, tol,
+                                      cg_maxiter, x0)
+        cg_hist.append(cg_it)
+        fy, sig_n, depl_n, elstiff, deps, dst_t = _respond_and_update(
+            md, dataclasses.replace(state, elstiff=elstiff), mat, CV, du,
+            fast, nsub)
+        # host read of the tangent change once per inner iteration: it
+        # decides the next hierarchy rebuild and warm start
+        dst = float(dst_t)
+    new = SolverState(u=state.u + du, sig=sig_n, epl=state.epl + depl_n,
+                      eps=state.eps + deps, elstiff=elstiff)
+    diag = {'fy_max': fy.max(), 'dstiff': dst, 'cg_res': cg_res,
+            'cg_iters': cg_it, 'cg_iters_hist': cg_hist, 'du': du,
+            'glob_sig': torch.mean(sig_n, dim=0),
+            'glob_eps': torch.mean(new.eps, dim=0),
+            'glob_epl': torch.mean(new.epl, dim=0),
+            'kes': kes}
+    return new, diag
+
+
+def solve_uniaxial(md: MeshData, mat, CV, nsteps=20, n_inner=3,
+                   dtype=DTYPE_DEVICE, cg_tol=None, cg_maxiter=2000,
+                   fast=True, nsub=4):
+    """Apply the boundary displacement in ``nsteps`` equal increments,
+    threading ``du``, the hierarchy and the tangent change from step to
+    step.  Returns (final state, [(glob_sig, glob_eps, glob_epl)])."""
+    state = init_state(md, CV, dtype=dtype)
+    hist = []
+    du0 = kes0 = dst0 = None
+    for _ in range(nsteps):
+        state, diag = load_step_split(
+            md, state, mat, CV, 1. / nsteps, n_inner=n_inner, cg_tol=cg_tol,
+            cg_maxiter=cg_maxiter, fast=fast, nsub=nsub, du0=du0, kes0=kes0,
+            dst0=dst0)
+        du0, kes0, dst0 = diag['du'], diag['kes'], diag['dstiff']
+        hist.append((diag['glob_sig'], diag['glob_eps'], diag['glob_epl']))
+    return state, hist

@@ -1,0 +1,164 @@
+"""PyTorch port: mesh, multigrid hierarchy and the split load step against
+the JAX reference at 32 x 32 in float64 with the trained SVC of
+REF_SOLVE_svc.npz.  Every JAX mesh is built fresh with ``rect_mesh`` (its
+coarse-mesh chain cache would serve a stale mesh for ``_replace`` copies).
+"""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pylabfea_tpu.ops import constitutive as jcon
+from pylabfea_tpu.ops import fe_kernels as jfek
+from pylabfea_tpu.ops import multigrid as jmg
+from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch.ops import fe_kernels as tfek
+from pylabfea_tpu_torch.ops import multigrid as tmg
+
+# One torch thread: the suite runs several test processes at once, and
+# torch's default one-thread-per-core pool oversubscribes the cores that the
+# JAX tests' 8-device collectives need (their rendezvous then stalls).
+torch.set_num_threads(1)
+
+NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'REF_SOLVE_svc.npz')
+N = 32
+F64 = jnp.float64
+
+
+def _materials():
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float64)
+    dm = jcon.DeviceMaterial(
+        hill=jnp.ones(6, F64), sy=jnp.asarray(mat.sy, F64),
+        khard=jnp.asarray(0., F64), drucker=jnp.asarray(0., F64),
+        sv=jnp.asarray(mat.sv.numpy()), dc=jnp.asarray(mat.dc.numpy()),
+        rho=jnp.asarray(mat.rho, F64), gamma=jnp.asarray(mat.gamma, F64),
+        scale_seq=jnp.asarray(mat.scale_seq, F64),
+        scale_wh=jnp.asarray(1., F64), feat_mean=jnp.zeros(0, F64),
+        feat_scale=jnp.zeros(0, F64), tex=jnp.zeros(0, F64), is_svc=True,
+        dev_only=mat.dev_only)
+    return dm, mat, CV, eps
+
+
+def _meshes(eps, **kw):
+    return (jfek.rect_mesh(N, N, LX=1., LY=1., eps_tot=eps, dtype=F64, **kw),
+            tfek.rect_mesh(N, N, LX=1., LY=1., eps_tot=eps,
+                           dtype=torch.float64, **kw))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+def _assert_state(st, sj, rtol):
+    for f in ('u', 'sig', 'epl', 'eps', 'elstiff'):
+        assert _rel(getattr(st, f).numpy(), getattr(sj, f)) <= rtol, f
+
+
+@pytest.mark.parametrize('kw', [dict(uniax='y'), dict(uniax='xy', eps_x=-1e-3,
+                                                        eps_y=2e-3),
+                                dict(bc={'left': {0: ('disp', 0.)},
+                                         'bot': {1: ('disp', 0.)},
+                                         'top': {1: ('force', 40.)},
+                                         'nodes': [(2, 3, 0, 'disp', 0.)]})])
+def test_rect_mesh_fields_match_jax(kw):
+    md, mt = _meshes(0.002, **kw)
+    for f in ('B', 'Bsum', 'jacw', 'vel', 'fixed', 'fixed_val', 'force'):
+        np.testing.assert_array_equal(getattr(mt, f).numpy(),
+                                      np.asarray(getattr(md, f)), err_msg=f)
+    assert (mt.ndof, mt.nel, mt.grid) == (md.ndof, md.nel, md.grid)
+    ma = convert.mesh_from_arrays(
+        {f: np.asarray(getattr(md, f)) for f in md._fields[:-4]}, md.grid,
+        md.ndof, md.nel, md.groups, dtype=torch.float64)
+    for f in ('B', 'fixed', 'fixed_val', 'force'):
+        assert torch.equal(getattr(ma, f), getattr(mt, f))
+
+
+def test_hierarchy_matches_jax():
+    """Galerkin hierarchy planes and the dense bottom inverse, 1e-10."""
+    _, _, CV, eps = _materials()
+    md, mt = _meshes(eps)
+    rng = np.random.default_rng(0)
+    els = CV.reshape(36, 1, 1) * rng.uniform(0.5, 1.5, (1, N, N))
+    kj = jmg.hierarchy_kes(jmg.build_hierarchy(md, jnp.asarray(els)))
+    kt = tmg.hierarchy_kes(tmg.build_hierarchy(mt, torch.tensor(els)))
+    assert len(kt) == len(kj) == 4      # 32, 16, 8 + bottom inverse
+    for a, b in zip(kt, kj):
+        assert a.shape == b.shape
+        assert _rel(a.numpy(), b) <= 1e-10
+    chain = tmg.mesh_chain(mt)
+    jchain = jmg._mesh_chain(md)
+    for a, b in zip(chain, jchain):
+        np.testing.assert_array_equal(a.fixed.numpy(), np.asarray(b.fixed))
+
+
+def test_load_steps_match_jax():
+    """A cold step and two warm-started steps (du0/kes0/dst0): u, sig, epl,
+    elstiff to 1e-9 relative and identical CG iteration histories."""
+    dm, mat, CV, eps = _materials()
+    md, mt = _meshes(eps)
+    sj = jfek.init_state(md, CV, dtype=F64)
+    st = tfek.init_state(mt, CV, dtype=torch.float64)
+    dj = dt = None
+    plastic = False
+    for _ in range(3):
+        warm_j = {} if dj is None else dict(
+            du0=dj['du'], kes0=dj['kes'], dst0=dj['dstiff'])
+        warm_t = {} if dt is None else dict(
+            du0=dt['du'], kes0=dt['kes'], dst0=dt['dstiff'])
+        sj, dj = jfek.load_step_split(md, sj, dm, CV, 0.25, n_inner=2,
+                                      **warm_j)
+        st, dt = tfek.load_step_split(mt, st, mat, CV, 0.25, n_inner=2,
+                                      **warm_t)
+        assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
+        _assert_state(st, sj, 1e-9)
+        assert _rel(dt['glob_sig'].numpy(), dj['glob_sig']) <= 1e-9
+        assert dt['cg_res'] <= 1e-11
+        plastic = plastic or bool(np.asarray(sj.epl).any())
+    assert plastic
+
+
+def test_step_from_converted_state_matches_jax():
+    """A JAX state carried over with convert.state_from_arrays continues
+    like the JAX step (cold start, two elastic-to-plastic steps)."""
+    dm, mat, CV, eps = _materials()
+    md, mt = _meshes(eps)
+    sj = jfek.init_state(md, CV, dtype=F64)
+    sj, _ = jfek.load_step_split(md, sj, dm, CV, 0.5, n_inner=2)
+    st = convert.state_from_arrays(
+        {f: np.asarray(getattr(sj, f)) for f in sj._fields},
+        dtype=torch.float64)
+    sj, dj = jfek.load_step_split(md, sj, dm, CV, 0.5, n_inner=2)
+    st, dt = tfek.load_step_split(mt, st, mat, CV, 0.5, n_inner=2)
+    assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
+    _assert_state(st, sj, 1e-9)
+
+
+def test_solve_uniaxial_matches_jax():
+    dm, mat, CV, eps = _materials()
+    md, mt = _meshes(eps)
+    sj, hj = jfek.solve_uniaxial(md, dm, CV, nsteps=4, n_inner=2,
+                                 dtype=F64)
+    st, ht = tfek.solve_uniaxial(mt, mat, CV, nsteps=4, n_inner=2,
+                                 dtype=torch.float64)
+    _assert_state(st, sj, 1e-9)
+    for a, b in zip(ht, hj):
+        for x, y in zip(a, b):
+            assert _rel(x.numpy(), y) <= 1e-9
+
+
+def test_unported_options_raise():
+    _, mat, CV, eps = _materials()
+    _, mt = _meshes(eps)
+    st = tfek.init_state(mt, CV, dtype=torch.float64)
+    for kw in (dict(gate=True), dict(n_refine=1), dict(commit_f64=True),
+               dict(commit_faithful=True), dict(fast=False)):
+        with pytest.raises(NotImplementedError):
+            tfek.load_step_split(mt, st, mat, CV, 0.25, **kw)
+    with pytest.raises(NotImplementedError):
+        tfek.rect_mesh(4, 4, planestress=True)
+    with pytest.raises(NotImplementedError):
+        tfek.rect_mesh(4, 4, mat_map=np.zeros((4, 4), int))

@@ -1,0 +1,102 @@
+"""PyTorch port: it imports no JAX, and its kernel wrappers take the plain
+version only for CPU tensors."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from pylabfea_tpu_torch.kernels import build
+from pylabfea_tpu_torch.ops import stencil
+from pylabfea_tpu_torch.ops import svc_kernels as sk
+
+# One torch thread: the suite runs several test processes at once, and
+# torch's default one-thread-per-core pool oversubscribes the cores that the
+# JAX tests' 8-device collectives need (their rendezvous then stalls).
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, 'pylabfea_tpu_torch')
+
+_PROBE = """
+import sys
+import torch
+torch.set_num_threads(1)
+import pylabfea_tpu_torch
+from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch.kernels import build
+from pylabfea_tpu_torch.ops import (constitutive, fe_kernels, jtensors,
+                                    multigrid, stencil, svc, svc_kernels)
+mat, CV, eps = convert.material_from_npz('REF_SOLVE_svc.npz')
+md = fe_kernels.rect_mesh(16, 16, eps_tot=eps)
+state, hist = fe_kernels.solve_uniaxial(md, mat, CV, nsteps=2, n_inner=1)
+bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+             or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
+assert not bad, bad
+print('clean', float(hist[-1][0][1]))
+"""
+
+
+def test_port_runs_without_importing_jax():
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith('clean')
+
+
+def test_no_port_source_imports_jax():
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            path = os.path.join(dirpath, name)
+            tree = ast.parse(open(path).read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    mods = [node.module or '']
+                else:
+                    continue
+                for m in mods:
+                    top = m.split('.')[0]
+                    assert top not in ('jax', 'jaxlib', 'pylabfea_tpu'), \
+                        f'{path} imports {m}'
+
+
+def test_cpu_tensors_take_plain_versions_without_launch():
+    Kp = torch.rand(8, 8, 4, 3, dtype=torch.float64)
+    u0, u1 = (torch.rand(5, 4, dtype=torch.float64) for _ in range(2))
+    n0 = stencil.k_apply.launches
+    out = stencil.k_apply(Kp, u0, u1)
+    ref = stencil.k_apply_plain(Kp, u0, u1)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    x, sv, dc = torch.rand(7, 6), torch.rand(5, 6), torch.rand(5)
+    m0 = sk.svc_f_grad.launches
+    f, g = sk.svc_f_grad(x, sv, dc, 2.5, 0.1)
+    fr, gr = sk.svc_f_grad_plain(x, sv, dc, 2.5, 0.1)
+    assert torch.equal(f, fr) and torch.equal(g, gr)
+    assert (stencil.k_apply.launches, sk.svc_f_grad.launches) == (n0, m0)
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    meta = dict(device='meta')
+    with pytest.raises(TypeError):
+        stencil.k_apply(torch.empty(8, 8, 4, 3, **meta),
+                        torch.empty(5, 4, **meta), torch.empty(5, 4, **meta))
+    with pytest.raises(TypeError):
+        sk.svc_f_grad(torch.empty(7, 6, **meta), torch.empty(5, 6, **meta),
+                      torch.empty(5, **meta), 2.5, 0.1)
+
+
+def test_build_key_tracks_sources_and_flags():
+    srcs = build._sources()
+    assert {s.name for s in srcs} == {'svc_fgrad.cu', 'kapply2d.cu'}
+    assert build._key(srcs) == build._key(list(srcs))
+    assert 'arch=compute_90a,code=sm_90a' in build.NVCC_FLAGS
+    assert set(build.SIGNATURES) == {
+        f'pylabfea_{k}_{t}' for k in ('svc_fgrad', 'kapply2d')
+        for t in ('f32', 'f64')}
