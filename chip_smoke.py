@@ -9,19 +9,27 @@ used.  Phases, each of which must pass:
 
 1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 off;
-2. build: nvcc builds both kernels from ``pylabfea_tpu_torch/csrc``;
+2. build: nvcc builds the three kernels from ``pylabfea_tpu_torch/csrc``
+   (one compiler per source, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes, with times;
+   paths' shapes, with times;
 4. the SVC return map on 2^20 states (512-SV synthetic SVC);
-5. the main path: a 1024 x 1024 Hill-ML load step (the trained SVC of
+5. the 2-D path: a 1024 x 1024 Hill-ML load step (the trained SVC of
    ``REF_SOLVE_svc.npz``), one untimed step then two timed warm-started
-   steps, which must launch both kernels;
+   steps, which must launch kernels A and B;
 6. the same steps at 64 x 64 on the card and on the CPU (plain versions),
-   in float32 and float64, which must agree.
+   in float32 and float64, which must agree;
+7. the 3-D path: a 128^3 hex8 box (2,097,152 elements) with J2 + linear
+   hardening, the ``bench.py`` protocol (an untimed 0.4 step, a timed
+   warm-started 0.3 step), which must launch kernel C and meet the uniaxial
+   closed form; then the same at 64^3;
+8. three 3-D steps at 16^3 on the card and on the CPU, float64 and float32,
+   which must agree.
 
-The last two lines are a JSON object with every kernel's launches, error
-and times, and ``{"ok": true, "device": {...}}``.  Any failure raises and
-exits non-zero without those lines.
+Every launch count of a path is set to 0 just before that path runs and
+read just after.  The last two lines are a JSON object with every kernel's
+launches, error, times and bound, and ``{"ok": true, "device": {...}}``.
+Any failure raises and exits non-zero without those lines.
 """
 import json
 import os
@@ -34,6 +42,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, 'REF_SOLVE_svc.npz')
 SY = 150.
+#: J2 + linear hardening of the 3-D path (bench.py fe3d_fields), MPa
+E3, KHARD3 = 200.e3, 500.
+#: H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside the tensor
+#: cores, at the full 700 W power limit
+HBM_BPS, F32_FLOPS = 3.35e12, 67.e12
 
 
 def fail(msg):
@@ -59,6 +72,14 @@ def timed_ms(fn, reps, warm=1):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound_ms(nbytes, flops):
+    """Least time on the card for work that moves ``nbytes`` (each input
+    read once, each output written once) and does ``flops`` float32
+    operations: (ms, 'bytes' | 'operations')."""
+    tb, tf = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
 def sync(device):
@@ -125,9 +146,10 @@ def phase_build():
     built = build.load()
     wall = time.perf_counter() - t0
     ptx = [ln.strip() for ln in built.log.splitlines()
-           if 'registers' in ln or 'spill' in ln]
-    log(f'[2 build] {built.path.name}: nvcc {built.seconds:.2f} s, load '
-        f'{wall:.2f} s')
+           if 'registers' in ln or 'spill' in ln or 'entry function' in ln
+           or ln.startswith('---')]
+    log(f'[2 build] {", ".join(p.name for p in built.paths)}: nvcc '
+        f'{built.seconds:.2f} s (parallel), load {wall:.2f} s')
     for ln in ptx:
         log(f'    ptxas: {ln}')
 
@@ -160,7 +182,64 @@ def check_kapply(device, NX, NY, reps, card):
         f'of stiffness planes), plain {pms:.4f} ms  [{card}]')
     if not ok:
         fail(f'k_apply {NX}x{NY} disagrees with its plain version')
-    return err, ms, pms
+    # every Ke entry read once and used in one multiply-add
+    bnd = bound_ms(Kp.numel() * 4 + 4 * u0.numel() * 4, 2 * Kp.numel())
+    return err, ms, pms, bnd
+
+
+def kapply3_inputs(shape, dtype, device, seed=0):
+    """Symmetric diagonally-dominant random tangent volumes (36, NX, NY, NZ)
+    and random nodal volumes, made on the card from a seed."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    NX, NY, NZ = shape
+    C6 = torch.randn((6, 6, NX, NY, NZ), generator=gen, dtype=dtype,
+                     device=device)
+    C6 = 0.5 * (C6 + C6.transpose(0, 1))
+    C6 += 6. * torch.eye(6, dtype=dtype, device=device)[:, :, None, None,
+                                                         None]
+    u = [torch.randn((NX + 1, NY + 1, NZ + 1), generator=gen, dtype=dtype,
+                     device=device) for _ in range(3)]
+    return C6.reshape(36, NX, NY, NZ), u
+
+
+def check_kapply3(device, shape, dtype, rtol, reps, card):
+    """Kernel C against its plain version at ``shape``; with ``reps``, the
+    kernel and plain times and the bound as well."""
+    import torch
+    from pylabfea_tpu_torch.ops import volume
+    Cp, u = kapply3_inputs(shape, dtype, device)
+    NX, NY, NZ = shape
+    lx, ly, lz = 1. / NX, 1.3 / NY, 0.7 / NZ
+    out = volume.k_apply3(Cp, *u, lx, ly, lz)
+    ref = volume.k_apply3_plain(Cp, *u, lx, ly, lz)
+    sync(device)
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    scale = max(float(r.abs().max()) for r in ref)
+    ok = err <= rtol * scale
+    name = 'x'.join(map(str, shape))
+    log(f'[3 kernel C] k_apply3 {name} {dtype}: max|err| {err:.3e} (bound '
+        f'{rtol:g}*{scale:.3e} = {rtol * scale:.3e}) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        fail(f'k_apply3 {name} {dtype} disagrees with its plain version')
+    if not reps:
+        return err, None, None, None
+    ms = timed_ms(lambda: volume.k_apply3(Cp, *u, lx, ly, lz), reps)
+    pms = timed_ms(lambda: volume.k_apply3_plain(Cp, *u, lx, ly, lz), 2)
+    isz = Cp.element_size()
+    nel, nn = Cp[0].numel(), u[0].numel()
+    # bench.py's single-pass traffic model: tangents once, u twice, out once
+    gbs = (36 * nel + 9 * nn) * isz / (ms * 1e-3) / 1e9
+    # the bound: every input read once, every output written once; 612
+    # flops per element (the kernel's transforms, 7 modes with their 138
+    # tangent multiply-adds, the transposed transforms, the node sums)
+    bnd = bound_ms((36 * nel + 6 * nn) * isz, 612 * nel)
+    log(f'[3 kernel C] k_apply3 {name} {dtype}: kernel {ms:.4f} ms '
+        f'({gbs:.0f} GB/s by the bench.py traffic model), plain {pms:.4f} '
+        f'ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} of it)  '
+        f'[{card}]')
+    return err, ms, pms, bnd
 
 
 def check_svc(device, N, params, reps, card):
@@ -198,11 +277,17 @@ def check_svc(device, N, params, reps, card):
     ms = timed_ms(lambda: sk.svc_f_grad(x, sv, dc, gamma, rho), reps)
     pms = timed_ms(lambda: sk.svc_f_grad_plain(x, sv, dc, gamma, rho),
                    max(reps // 4, 1))
-    gexp = N * sv.shape[0] / (ms * 1e-3) / 1e9
-    log(f'[3 kernel A] svc_f_grad N={N} nsv={sv.shape[0]} f32 with_grad: '
+    nsv, F = sv.shape
+    gexp = N * nsv / (ms * 1e-3) / 1e9
+    # x, sv, dc read, f and g written once; 5F + 4 flops per point-SV pair
+    # (F subtracts and F multiply-adds of the distance, the gamma product,
+    # the exp, the dc product, the f sum and F multiply-adds of g)
+    bnd = bound_ms((2 * N * F + N + nsv * (F + 1)) * 4,
+                   N * nsv * (5 * F + 4))
+    log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} f32 with_grad: '
         f'kernel {ms:.4f} ms ({gexp:.1f} G point-SV pairs/s), plain '
-        f'{pms:.4f} ms  [{card}]')
-    return max(errs), ms, pms
+        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]')
+    return max(errs), ms, pms, bnd
 
 
 def phase_return_map(device, N, reps, card):
@@ -260,6 +345,17 @@ def run_steps(md, mat, CV, dtype, n_timed, device, counters=()):
     return st, d, times, iters, before
 
 
+def counters():
+    """Every kernel wrapper's launch counter: kernels A, B, C."""
+    from pylabfea_tpu_torch.ops import stencil, svc_kernels, volume
+    return (svc_kernels.svc_f_grad, stencil.k_apply, volume.k_apply3)
+
+
+def reset_counts():
+    for c in counters():
+        c.launches = 0
+
+
 def phase_main_path(device, NB, card):
     import torch
     from pylabfea_tpu_torch import convert
@@ -269,12 +365,11 @@ def phase_main_path(device, NB, card):
                                              device=device)
     md = fek.rect_mesh(NB, NB, LX=1., LY=1., uniax='y', eps_tot=eps,
                        dtype=torch.float32, device=device)
-    counters = (stencil.k_apply, sk.svc_f_grad)
-    for c in counters:
-        c.launches = 0
+    path = (stencil.k_apply, sk.svc_f_grad)
+    reset_counts()
     st, d, times, iters, before = run_steps(md, mat, CV, torch.float32, 2,
-                                            device, counters)
-    launches = [c.launches for c in counters]
+                                            device, path)
+    launches = [c.launches for c in path]
     timed = [a - b for a, b in zip(launches, before)]
     gsig = d['glob_sig'].cpu().numpy()
     fin = all(bool(torch.isfinite(t).all())
@@ -331,6 +426,104 @@ def phase_card_vs_cpu(device, NB, card):
             fail(f'card and CPU disagree at {NB}x{NB} {dtype}')
 
 
+def j2_material(dtype, device):
+    """J2 + linear hardening (sy 150, khard 500 MPa), the 3-D material of
+    bench.py, as analytic DeviceMaterial leaves."""
+    from pylabfea_tpu_torch import convert
+    return convert.material_from_params(
+        dict(hill=np.ones(6), sy=SY, khard=KHARD3, drucker=0.), is_svc=False,
+        dtype=dtype, device=device)
+
+
+def run_steps3(N, fracs, dtype, device):
+    """``load_step3`` on an N^3 box for each load fraction of ``fracs``,
+    each later step warm-started from the previous increment.  Returns
+    (mesh, state, last diag, step seconds, cg iteration histories, kernel
+    C launches of each step)."""
+    import torch
+    from pylabfea_tpu_torch.ops import fe3d, volume
+    mat, CV = j2_material(dtype, device), elastic_cv()
+    md = fe3d.box_mesh(N, N, N, uniax='z', eps_tot=0.002, dtype=dtype,
+                       device=device)
+    st = fe3d.init_state3(md, CV, dtype=dtype)
+    d = {'du': torch.zeros_like(st.u)}
+    secs, iters, launches = [], [], []
+    for frac in fracs:
+        sync(device)
+        n0 = volume.k_apply3.launches
+        t0 = time.perf_counter()
+        st, d = fe3d.load_step3(md, st, mat, CV, frac, n_inner=2,
+                                du0=d['du'])
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        iters.append(list(d['cg_iters_hist']))
+        launches.append(volume.k_apply3.launches - n0)
+    return md, st, d, secs, iters, launches
+
+
+def phase_3d_path(device, N, card):
+    """bench.py's 3-D protocol at N^3: an untimed 0.4 step, a timed 0.3
+    step.  Returns the kernel C launches of both steps."""
+    import torch
+    reset_counts()
+    md, st, d, secs, iters, launches = run_steps3(N, (0.4, 0.3),
+                                                  torch.float32, device)
+    total = [c.launches for c in counters()]
+    gsig = d['glob_sig'].double().cpu().numpy()
+    fin = all(bool(torch.isfinite(t).all())
+              for t in (st.u, st.sig, st.epl, st.eps, st.elstiff))
+    # uniaxial stress with linear hardening at eps = 0.7 * 0.002
+    eps = 0.7 * 0.002
+    closed = (SY + KHARD3 * eps) * E3 / (E3 + KHARD3)
+    rel = abs(gsig[2] - closed) / closed
+    # the field is homogeneous up to the return map's acceptance band
+    # (yf_tolerance 5e-3 of the flow stress) and the CG residual (1e-6)
+    spread = float((st.sig - st.sig.mean(0)).abs().max())
+    sbound = 5e-3 * closed
+    name = f'{N}^3'
+    key = {128: 'step_s_128cubed', 64: 'step_s_64cubed_3d'}.get(N, 'step_s')
+    log(f'[7 3-D path] {name} box ({md.nel:,} hex8, {md.ndof:,} dofs) '
+        f'load_step3(0.3, n_inner=2, du0) after an untimed 0.4 step, J2 + '
+        f'hardening, f32: {key} {secs[1]:.4f} (untimed step '
+        f'{secs[0]:.4f}); cg_iters_hist {iters}; cg_res '
+        f'{float(d["cg_res"]):.2e}; k_apply3 launches timed step '
+        f'{launches[1]}, both steps {total[2]} (k_apply {total[1]}, '
+        f'svc_f_grad {total[0]}); finite {fin}  [{card}]')
+    log(f'[7 3-D path] {name} glob_sig[2] {gsig[2]:.4f} vs closed form '
+        f'{closed:.4f} (rel {rel:.2e}, bound 1e-2); max|sig - mean| '
+        f'{spread:.3e} (bound 5e-3 * {closed:.1f} = {sbound:.3f})')
+    if not fin:
+        fail(f'3-D path {name} produced non-finite fields')
+    if launches[1] == 0:
+        fail(f'3-D path {name}: kernel C was not launched in the timed step')
+    if rel > 1e-2 or spread > sbound:
+        fail(f'3-D path {name}: stress off the uniaxial closed form')
+    return total[2]
+
+
+def phase_3d_card_vs_cpu(device, N, card):
+    import torch
+    cpu = torch.device('cpu')
+    # the third step takes another fraction, so its warm start is off and
+    # CG has work to do (an equal step would start converged)
+    fracs = (0.4, 0.3, 0.2)
+    for dtype, rtol in ((torch.float64, 1e-9), (torch.float32, 1e-3)):
+        res = {}
+        for dev in (device, cpu):
+            _, st, d, _, iters, _ = run_steps3(N, fracs, dtype, dev)
+            res[dev.type] = (d['glob_sig'].cpu().double(),
+                             st.sig.abs().max().cpu().double(), iters)
+        (ga, ma, ia), (gb, mb, ib) = res[device.type], res['cpu']
+        eg = float((ga - gb).abs().max() / gb.abs().max())
+        em = float((ma - mb).abs() / mb)
+        ok = eg <= rtol and em <= rtol
+        log(f'[8 3-D card vs cpu] {N}^3 three steps {dtype}: glob_sig rel '
+            f'{eg:.2e}, max|sig| rel {em:.2e} (bound {rtol:g}); '
+            f'cg_iters_hist card {ia} cpu {ib} {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'card and CPU disagree at {N}^3 {dtype}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -342,6 +535,10 @@ def main():
     phase_build()
     eb = [check_kapply(device, 1024, 1024, 20, card),
           check_kapply(device, 130, 67, 20, card)]
+    ec = [check_kapply3(device, (128, 128, 128), torch.float32, 3e-6, 20,
+                        card),
+          check_kapply3(device, (40, 24, 72), torch.float32, 3e-6, 0, card),
+          check_kapply3(device, (16, 16, 16), torch.float64, 1e-12, 0, card)]
     trained = dict(np.load(NPZ))
     trained = dict(sv=trained['support_vectors'], dc=trained['dual_coef'],
                    gamma=float(trained['gamma']),
@@ -351,19 +548,26 @@ def main():
     phase_return_map(device, 2 ** 20, 3, card)
     main_run = phase_main_path(device, 1024, card)
     phase_card_vs_cpu(device, 64, card)
+    launches3 = phase_3d_path(device, 128, card)
+    phase_3d_path(device, 64, card)
+    phase_3d_card_vs_cpu(device, 16, card)
+
+    def entry(name, src, replaces, launches, checks):
+        # no single PyTorch call computes any of these functions
+        err, ms, pms, (bms, by) = max(c[0] for c in checks), *checks[0][1:]
+        return dict(name=name, route='cuda',
+                    source=f'pylabfea_tpu_torch/csrc/{src}',
+                    replaces=f'pylabfea_tpu/ops/{replaces}',
+                    launches=launches, max_abs_err=err, ms=ms, plain_ms=pms,
+                    bound_ms=bms, bound_by=by, library_ms=None)
+
     kernels = [
-        dict(name='svc_f_grad', route='cuda',
-             source='pylabfea_tpu_torch/csrc/svc_fgrad.cu',
-             replaces='pylabfea_tpu/ops/pallas_kernels.py:231',
-             launches=main_run['launches'][1],
-             max_abs_err=max(e[0] for e in ea), ms=ea[0][1],
-             plain_ms=ea[0][2]),
-        dict(name='k_apply', route='cuda',
-             source='pylabfea_tpu_torch/csrc/kapply2d.cu',
-             replaces='pylabfea_tpu/ops/stencil_pallas.py:138',
-             launches=main_run['launches'][0],
-             max_abs_err=max(e[0] for e in eb), ms=eb[0][1],
-             plain_ms=eb[0][2]),
+        entry('svc_f_grad', 'svc_fgrad.cu', 'pallas_kernels.py:231',
+              main_run['launches'][1], ea),
+        entry('k_apply', 'kapply2d.cu', 'stencil_pallas.py:138',
+              main_run['launches'][0], eb),
+        entry('k_apply3', 'kapply3d.cu', 'volume_pallas.py:175',
+              launches3, ec),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -8,10 +8,12 @@ does:
 * **performance** (CUDA, float32, ``DTYPE_DEVICE``): the hand-written CUDA
   kernels under ``csrc/`` on an NVIDIA Hopper card.
 
-Every constructor takes an explicit ``device`` (``None`` is PyTorch's
-default, the CPU) and ``dtype`` (default ``DTYPE_DEVICE``, as the JAX
-package's solver defaults to float32); every later tensor follows the
-device and dtype of its inputs.
+Every constructor takes a ``device`` and a ``dtype`` (default
+``DTYPE_DEVICE``, as the JAX package's solver defaults to float32); every
+later tensor follows the device and dtype of its inputs.  ``device=None``
+means the card (``default_device``), and raises where no card is visible:
+the CPU runs only when the caller asks for it with ``device='cpu'``, as the
+parity tests do.
 
 TF32 is switched off at import.  A float32 product in TF32 keeps about three
 decimal digits; the JAX reference measured that reduced-precision SVC
@@ -33,6 +35,20 @@ DTYPE_DEVICE = torch.float32
 #: Plastic yielding is assumed when the yield function exceeds this
 #: tolerance (the JAX package's ``core/tensors.py`` value and variable).
 yf_tolerance = float(os.environ.get('PYLABFEA_YF_TOL', 5.e-3))
+
+
+def default_device() -> torch.device:
+    """The device of a constructor called without one: the CUDA card.
+    Raises where no card is visible; it never returns the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError('pylabfea_tpu_torch: no CUDA device is visible; '
+                           "pass device='cpu' to run on the CPU")
+    return torch.device('cuda')
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` is ``default_device()``."""
+    return default_device() if device is None else torch.device(device)
 
 
 def tf32_off() -> bool:

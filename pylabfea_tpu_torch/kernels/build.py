@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources have a plain C interface and are compiled with ``nvcc`` into
-one shared library, loaded with ``ctypes`` (pointers and the CUDA stream
-pass as ``c_void_p``; every entry point returns ``cudaGetLastError()``
-after its launch).  The build runs at first use and is keyed on a hash of
-the sources and flags, so a fresh checkout builds once and later processes
-reuse the library from ``pylabfea_tpu_torch/build/`` (listed in
+Each source has a plain C interface and is compiled by its own ``nvcc``
+into its own shared library; the compilers run in parallel.  The libraries
+are loaded with ``ctypes`` (pointers and the CUDA stream pass as
+``c_void_p``; every entry point returns ``cudaGetLastError()`` after its
+launch).  A build runs at first use and is keyed on a hash of its source
+and the flags, so a fresh checkout builds once and later processes reuse
+the libraries from ``pylabfea_tpu_torch/build/`` (listed in
 ``.gitignore``).  Nothing here runs at import.
 """
 import ctypes
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import time
+import types
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -28,24 +30,30 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 
-#: C entry points: name -> argtypes (every one returns a cudaError_t as int)
+#: C entry points ``pylabfea_<source stem>_<f32|f64>``: name -> argtypes
+#: (every one returns a cudaError_t as int)
 SIGNATURES = {
     'pylabfea_svc_fgrad_f32': (_P, _P, _P, _L, _I, _I, ctypes.c_float,
                                ctypes.c_float, _P, _P, _I, _P),
-    'pylabfea_svc_fgrad_f64': (_P, _P, _P, _L, _I, _I, ctypes.c_double,
-                               ctypes.c_double, _P, _P, _I, _P),
+    'pylabfea_svc_fgrad_f64': (_P, _P, _P, _L, _I, _I, _D, _D, _P, _P, _I,
+                               _P),
     'pylabfea_kapply2d_f32': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply2d_f64': (_P, _P, _P, _P, _P, _I, _I, _P),
+    'pylabfea_kapply3d_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _D, _D, _D, _P),
+    'pylabfea_kapply3d_f64': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _D, _D, _D, _P),
 }
 
 
 @dataclass
 class Built:
-    """The loaded kernel library and how it was obtained."""
-    lib: ctypes.CDLL
-    path: Path
-    seconds: float      # wall time of the nvcc build (0 when reused)
+    """The loaded kernel libraries and how they were obtained."""
+    lib: types.SimpleNamespace   # every entry point of SIGNATURES
+    paths: list                  # one shared library per source
+    seconds: float      # wall time of the parallel nvcc builds (0: reused)
     log: str            # nvcc output (ptxas register/shared-memory report)
 
 
@@ -77,29 +85,48 @@ def _key(srcs):
     return h.hexdigest()[:16]
 
 
+def _library(src):
+    return BUILD_DIR / f'lib{src.stem}_{_key([src])}.so'
+
+
 @functools.lru_cache(maxsize=1)
 def load() -> Built:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build what is missing (one nvcc per source, all started together)
+    and load every kernel library; cached per process."""
     srcs = _sources()
-    so = BUILD_DIR / f'libpylabfea_kernels_{_key(srcs)}.so'
+    todo = [s for s in srcs if not _library(s).exists()]
     seconds, log = 0., ''
-    if not so.exists():
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, srcs)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for s in todo:
+            tmp = _library(s).with_suffix(f'.{os.getpid()}.tmp')
+            jobs.append((s, tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, '-o', str(tmp), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for s, tmp, proc in jobs:
+            out = proc.communicate()[0]
+            log += f'--- {s.name}\n{out}'
+            if proc.returncode != 0:
+                failed.append(f'{s.name} ({proc.returncode})')
+            else:
+                os.replace(tmp, _library(s))   # atomic: builders race safely
         seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({res.returncode}):\n{log}')
-        os.replace(tmp, so)     # atomic: concurrent builders race safely
-    lib = ctypes.CDLL(str(so))
+        if failed:
+            raise RuntimeError(f'nvcc failed for {", ".join(failed)}:\n{log}')
+    libs = {s.stem: ctypes.CDLL(str(_library(s))) for s in srcs}
+    fns = {}
     for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(libs[name[len('pylabfea_'):-len('_f32')]], name)
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    return Built(lib=lib, path=so, seconds=seconds, log=log)
+        fns[name] = fn
+    return Built(lib=types.SimpleNamespace(**fns),
+                 paths=[_library(s) for s in srcs], seconds=seconds, log=log)
 
 
 def check(err: int, what: str):

@@ -1,12 +1,12 @@
-"""Batched constitutive update with an SVC yield function (subset of
-``pylabfea_tpu.ops.constitutive``).
+"""Batched constitutive update (subset of ``pylabfea_tpu.ops.constitutive``).
 
-Ported: the SVC yield function on 6-D stress features (``dev_only`` both
-ways, no work hardening, no texture), its fused value + gradient through
-kernel A (``svc_kernels.svc_f_grad``), and the production cutting-plane
-return map ``response_fast`` with the exact path-secant tangent.  Analytic
-(Hill/J2/Drucker) materials, cylindrical sdim=3 features, work hardening
-and texture raise ``NotImplementedError``.
+Ported: the analytic Hill/J2/Drucker criterion on 6-D Voigt stresses with
+linear and Voce hardening; the SVC yield function on 6-D stress features
+(``dev_only`` both ways, no work hardening, no texture) with its fused
+value + gradient through kernel A (``svc_kernels.svc_f_grad``); and the
+production cutting-plane return map ``response_fast`` with the exact
+path-secant tangent, for both kinds.  sdim=3 (principal-space) materials,
+work-hardening and texture SVC features raise ``NotImplementedError``.
 """
 from dataclasses import dataclass
 
@@ -28,7 +28,8 @@ class DeviceMaterial:
     Tensors live on the device the return map runs on; ``gamma``, ``rho``,
     ``sy``, ``khard``, ``drucker``, ``scale_seq``, ``scale_wh`` and the
     Voce constants are host floats, so no kernel call reads a scalar back
-    from the device."""
+    from the device.  Analytic materials hold dummy (1, 6) / (1,) SVC
+    tensors, as in the JAX package."""
     hill: torch.Tensor       # (6,)
     sv: torch.Tensor         # (nsv, F) SVC support vectors
     dc: torch.Tensor         # (nsv,) dual coefficients
@@ -46,11 +47,12 @@ class DeviceMaterial:
     sdim3: bool = False
 
 
-def _require_svc(m: DeviceMaterial):
-    if not m.is_svc:
-        raise NotImplementedError('the torch port supports SVC materials '
-                                  'only; analytic criteria come later')
-    if m.sdim3 or m.sv.shape[-1] != 6:
+def _require_ported(m: DeviceMaterial):
+    """Raise for the material kinds the port does not have yet."""
+    if m.sdim3:
+        raise NotImplementedError('sdim=3 (principal-space) materials are '
+                                  'not ported yet')
+    if m.is_svc and m.sv.shape[-1] != 6:
         raise NotImplementedError(
             'the torch port supports 6-D stress SVC features only (no '
             f'cylindrical, work-hardening or texture features); got '
@@ -105,18 +107,78 @@ def khard_of(m: DeviceMaterial, g_feat, mask=None):
     return m.khard
 
 
+# -----------------------------------------------------------------
+# analytic Hill / J2 / Drucker criterion
+# -----------------------------------------------------------------
+def seq_hill(m: DeviceMaterial, sig):
+    """Hill equivalent stress with Drucker hydrostatic term on Voigt
+    stresses (..., 6) (the 6-parameter form; sdim=3 is not ported)."""
+    return _seq_hill_of(m, sig, sig)
+
+
+def _seq_hill_of(m: DeviceMaterial, sig, s):
+    """Hill equivalent stress of the rows ``s``; ``sig`` supplies the I1
+    trace."""
+    hp = m.hill
+    sh3, sh4, sh5 = s[..., 3], s[..., 4], s[..., 5]
+    I2 = 0.5 * (hp[0] * (s[..., 0] - s[..., 1]) ** 2 +
+                hp[1] * (s[..., 1] - s[..., 2]) ** 2 +
+                hp[2] * (s[..., 2] - s[..., 0]) ** 2 +
+                6. * hp[3] * sh3 ** 2 +
+                6. * hp[4] * sh4 ** 2 +
+                6. * hp[5] * sh5 ** 2)
+    I1 = m.drucker * torch.sum(sig[..., 0:3], dim=-1) / 3.
+    return jt.safe_sqrt(I2) + I1
+
+
+def _seq_grad_analytic(m: DeviceMaterial, sig):
+    """(seq, d seq / d sig) of the analytic criterion; the gradient at
+    zero stress (a sqrt kink) is guarded to stay finite."""
+    hp = m.hill
+    seq = _seq_hill_of(m, sig, sig)
+    seqg = torch.where(seq <= 0., 1., seq)
+    sdev = jt.sig_dev(sig)
+    d3 = m.drucker / 3.
+    g0 = ((hp[0] + hp[2]) * sdev[..., 0] - hp[0] * sdev[..., 1]
+          - hp[2] * sdev[..., 2]) / (2. * seqg) + d3
+    g1 = ((hp[1] + hp[0]) * sdev[..., 1] - hp[0] * sdev[..., 0]
+          - hp[1] * sdev[..., 2]) / (2. * seqg) + d3
+    g2 = ((hp[2] + hp[1]) * sdev[..., 2] - hp[2] * sdev[..., 0]
+          - hp[1] * sdev[..., 1]) / (2. * seqg) + d3
+    g3 = 3. * hp[3] * sdev[..., 3] / seqg
+    g4 = 3. * hp[4] * sdev[..., 4] / seqg
+    g5 = 3. * hp[5] * sdev[..., 5] / seqg
+    return seq, torch.stack([g0, g1, g2, g3, g4, g5], dim=-1)
+
+
 def yf(m: DeviceMaterial, sig, peeq, epl=None):
-    """Yield function (SVC decision value); sig (N, 6), peeq (N,)."""
-    _require_svc(m)
-    return svc_decision(m, _features(m, sig, epl))
+    """Yield function: SVC decision value or seq - sflow; sig (N, 6),
+    peeq (N,)."""
+    _require_ported(m)
+    if m.is_svc:
+        return svc_decision(m, _features(m, sig, epl))
+    return seq_hill(m, sig) - flow_stress(m, peeq)
+
+
+def fgrad(m: DeviceMaterial, sig, epl=None):
+    """Yield-surface gradient in stress space; sig (N, 6)."""
+    _require_ported(m)
+    if m.is_svc:
+        return _svc_stress_grad(m, sig,
+                                svc_gradient(m, _features(m, sig, epl)))
+    return _seq_grad_analytic(m, sig)[1]
 
 
 def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     """Fused yield function + stress gradient + hardening modulus (one
-    kernel pass).  Returns (f, g (N, 6), khard)."""
-    _require_svc(m)
-    f, g = svc_decision_and_gradient(m, _features(m, sig, epl))
-    return f, _svc_stress_grad(m, sig, g), khard_of(m, g)
+    kernel pass for SVC).  Returns (f, g (N, 6), khard: a float for SVC,
+    (N,) for analytic hardening)."""
+    _require_ported(m)
+    if m.is_svc:
+        f, g = svc_decision_and_gradient(m, _features(m, sig, epl))
+        return f, _svc_stress_grad(m, sig, g), khard_of(m, g)
+    seq, g = _seq_grad_analytic(m, sig)
+    return seq - flow_stress(m, peeq), g, hard_modulus(m, peeq)
 
 
 # -----------------------------------------------------------------
@@ -183,27 +245,32 @@ def _compliance(CV):
 def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
     """Cutting-plane closest-point return map (Simo & Hughes alg. 3.5.2),
     ``nsub`` equal substeps, then the exact path-secant tangent; the JAX
-    ``response_fast`` with its early-exit Newton loop.
+    ``response_fast`` with its early-exit Newton loop, for SVC and analytic
+    materials.
 
     state = (sig (N, 6), epl (N, 6)); deps (N, 6); CV (6, 6) tensor.
     Returns (f_end, sig, depl, tangent (N, 6, 6))."""
-    _require_svc(m)
+    _require_ported(m)
     sig0, epl0 = state
     dt = sig0.dtype
     N = sig0.shape[0]
     # trust region on the per-iteration stress correction (SVC decision
-    # surfaces flatten outside the training band)
-    cap = 0.1 * m.scale_seq
+    # surfaces flatten outside the training band); analytic criteria are
+    # 1-homogeneous and convex and run uncapped
+    cap = 0.1 * m.scale_seq if m.is_svc else 1.e6 * m.scale_seq
     deps_s = deps / nsub
     CVT = CV.T
     cv_floor = 1e-12 * torch.max(torch.abs(CV))
-    toler = yf_tolerance * PROJ_TOL_SCALE
 
     def project(sig_in, depl_in, f0):
         """One cutting-plane projection of the substep trial state; ``f0``
         is the yield function at the substep start.  Costs 1 + n_newton
         fused f/grad kernel passes."""
         peeq_in = jt.eps_eq(epl0 + depl_in)
+        # SVC values are dimensionless; analytic f carries stress units
+        toler = yf_tolerance * PROJ_TOL_SCALE
+        if not m.is_svc:
+            toler = toler * flow_stress(m, peeq_in)
         sig_tr = sig_in + deps_s @ CVT
         epl_in = epl0 + depl_in
         f_tr, a_tr, kh_tr = yf_and_fgrad(m, sig_tr, peeq_in, epl_in)
@@ -237,6 +304,20 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
             it += 1
         sig = torch.where(plastic[:, None], sig, sig_tr)
         depl = torch.where(plastic[:, None], depl, depl_in)
+        if not m.is_svc:
+            # radial excess-stress fallback: scale an overshooting stress
+            # back to the locus (seq is 1-homogeneous, one factor is exact)
+            # and book the compensating plastic strain through the
+            # pseudo-compliance
+            seq_c = seq_hill(m, sig)
+            over_c = plastic & (f > toler) & (seq_c > 1e-8)
+            fac = torch.where(over_c, f / torch.where(seq_c == 0., 1., seq_c),
+                              0.)
+            dsig_x = sig * fac[:, None]
+            sig = sig - dsig_x
+            depl = depl + dsig_x @ _compliance(CV).T
+            f, a, kh = yf_and_fgrad(m, sig, jt.eps_eq(epl0 + depl),
+                                    epl0 + depl)
         # substep tangent: alpha-blend of elastic stiffness and the
         # consistent tangent at the substep end state
         ca = a @ CVT

@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from pylabfea_tpu_torch.config import DTYPE_DEVICE
+from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
 from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import stencil as st
 
@@ -145,7 +145,8 @@ def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
     fixed in y, top pulled in +y (``uniax='y'``), right pulled in +x
     (``'x'``) or both (``'xy'``, magnitudes ``eps_x``/``eps_y``); ``bc``
     (see ``make_edge_bcs``) replaces them.  ``fixed_val``/``force`` are
-    patterns for a unit load factor."""
+    patterns for a unit load factor.  ``device=None`` is the card."""
+    device = resolve_device(device)
     if planestress:
         raise NotImplementedError('plane-stress meshes are not ported yet')
     if mat_map is not None:

@@ -25,7 +25,8 @@ SY = 150.
 
 def _materials():
     """The trained SVC as JAX and torch DeviceMaterials (f64) and CV."""
-    mat, CV, _ = convert.material_from_npz(NPZ, dtype=torch.float64)
+    mat, CV, _ = convert.material_from_npz(NPZ, dtype=torch.float64,
+                                           device='cpu')
     f64 = jnp.float64
     dm = jcon.DeviceMaterial(
         hill=jnp.ones(6, f64), sy=jnp.asarray(mat.sy, f64),

@@ -12,6 +12,7 @@ import torch
 from pylabfea_tpu_torch.ops import fe_kernels as fek
 from pylabfea_tpu_torch.ops import stencil
 from pylabfea_tpu_torch.ops import svc_kernels as sk
+from pylabfea_tpu_torch.ops import volume
 
 pytestmark = pytest.mark.cuda
 
@@ -68,6 +69,32 @@ def test_svc_kernel_matches_plain(cuda, n, nsv, dtype, tol):
     assert float((g.double() - gr).abs().max()) <= gbound
 
 
+def _k3(shape, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    C6 = rng.normal(size=(6, 6) + shape)
+    C6 = 0.5 * (C6 + C6.transpose(1, 0, 2, 3, 4)) \
+        + 6. * np.eye(6)[:, :, None, None, None]
+    u = [rng.normal(size=tuple(n + 1 for n in shape)) for _ in range(3)]
+    return (torch.as_tensor(C6.reshape((36,) + shape), dtype=dtype,
+                            device=device),
+            *(torch.as_tensor(x, dtype=dtype, device=device) for x in u))
+
+
+@pytest.mark.parametrize('dtype,rtol', [(torch.float32, 3e-6),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize('shape', [(1, 1, 1), (40, 24, 72)])
+def test_k_apply3_kernel_matches_plain(cuda, shape, dtype, rtol):
+    args = (*_k3(shape, dtype, cuda), 0.5, 0.25, 0.125)
+    n0 = volume.k_apply3.launches
+    out = volume.k_apply3(*args)
+    again = volume.k_apply3(*args)
+    torch.cuda.synchronize()
+    assert volume.k_apply3.launches == n0 + 2
+    for o, a, r in zip(out, again, volume.k_apply3_plain(*args)):
+        assert torch.equal(o, a)        # fixed summation order
+        assert float((o - r).abs().max()) <= rtol * float(r.abs().max())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     Kp, u0, u1 = _kp(8, 6, torch.float32, cuda)
     with pytest.raises(ValueError):
@@ -84,3 +111,18 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         sk.svc_f_grad(torch.zeros(4, 6, device=cuda),
                       torch.zeros(3, 6, device=cuda, dtype=torch.float64),
                       torch.zeros(3, device=cuda), 1., 0.)
+    Cp, u0, u1, u2 = _k3((4, 3, 5), torch.float32, cuda)
+    h = (1., 1., 1.)
+    with pytest.raises(ValueError):                      # not contiguous
+        volume.k_apply3(Cp, u0.transpose(0, 2).contiguous().transpose(0, 2),
+                        u1, u2, *h)
+    with pytest.raises(ValueError):
+        volume.k_apply3(Cp[:, :, :, 1:], u0, u1, u2, *h)  # not contiguous
+    with pytest.raises(TypeError):
+        volume.k_apply3(Cp, u0.double(), u1, u2, *h)
+    with pytest.raises(TypeError):
+        volume.k_apply3(Cp.half(), u0.half(), u1.half(), u2.half(), *h)
+    with pytest.raises(ValueError):
+        volume.k_apply3(Cp, u0[:-1].contiguous(), u1, u2, *h)
+    with pytest.raises(ValueError):
+        volume.k_apply3(Cp[:35].contiguous(), u0, u1, u2, *h)

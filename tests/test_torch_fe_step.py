@@ -29,7 +29,8 @@ F64 = jnp.float64
 
 
 def _materials():
-    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float64)
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float64,
+                                             device='cpu')
     dm = jcon.DeviceMaterial(
         hill=jnp.ones(6, F64), sy=jnp.asarray(mat.sy, F64),
         khard=jnp.asarray(0., F64), drucker=jnp.asarray(0., F64),
@@ -45,7 +46,7 @@ def _materials():
 def _meshes(eps, **kw):
     return (jfek.rect_mesh(N, N, LX=1., LY=1., eps_tot=eps, dtype=F64, **kw),
             tfek.rect_mesh(N, N, LX=1., LY=1., eps_tot=eps,
-                           dtype=torch.float64, **kw))
+                           dtype=torch.float64, device='cpu', **kw))
 
 
 def _rel(a, b):
@@ -72,7 +73,7 @@ def test_rect_mesh_fields_match_jax(kw):
     assert (mt.ndof, mt.nel, mt.grid) == (md.ndof, md.nel, md.grid)
     ma = convert.mesh_from_arrays(
         {f: np.asarray(getattr(md, f)) for f in md._fields[:-4]}, md.grid,
-        md.ndof, md.nel, md.groups, dtype=torch.float64)
+        md.ndof, md.nel, md.groups, dtype=torch.float64, device='cpu')
     for f in ('B', 'fixed', 'fixed_val', 'force'):
         assert torch.equal(getattr(ma, f), getattr(mt, f))
 
@@ -130,7 +131,7 @@ def test_step_from_converted_state_matches_jax():
     sj, _ = jfek.load_step_split(md, sj, dm, CV, 0.5, n_inner=2)
     st = convert.state_from_arrays(
         {f: np.asarray(getattr(sj, f)) for f in sj._fields},
-        dtype=torch.float64)
+        dtype=torch.float64, device='cpu')
     sj, dj = jfek.load_step_split(md, sj, dm, CV, 0.5, n_inner=2)
     st, dt = tfek.load_step_split(mt, st, mat, CV, 0.5, n_inner=2)
     assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
@@ -159,6 +160,6 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError):
             tfek.load_step_split(mt, st, mat, CV, 0.25, **kw)
     with pytest.raises(NotImplementedError):
-        tfek.rect_mesh(4, 4, planestress=True)
+        tfek.rect_mesh(4, 4, planestress=True, device='cpu')
     with pytest.raises(NotImplementedError):
-        tfek.rect_mesh(4, 4, mat_map=np.zeros((4, 4), int))
+        tfek.rect_mesh(4, 4, mat_map=np.zeros((4, 4), int), device='cpu')

@@ -1,5 +1,6 @@
-"""PyTorch port: it imports no JAX, and its kernel wrappers take the plain
-version only for CPU tensors."""
+"""PyTorch port: it imports no JAX, its constructors build on the card
+unless asked for the CPU, and its kernel wrappers take the plain version
+only for CPU tensors."""
 import ast
 import os
 import subprocess
@@ -8,8 +9,9 @@ import sys
 import pytest
 import torch
 
+from pylabfea_tpu_torch import config, convert
 from pylabfea_tpu_torch.kernels import build
-from pylabfea_tpu_torch.ops import stencil
+from pylabfea_tpu_torch.ops import fe3d, fe_kernels, stencil, volume
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 # One torch thread: the suite runs several test processes at once, and
@@ -27,15 +29,21 @@ torch.set_num_threads(1)
 import pylabfea_tpu_torch
 from pylabfea_tpu_torch import convert
 from pylabfea_tpu_torch.kernels import build
-from pylabfea_tpu_torch.ops import (constitutive, fe_kernels, jtensors,
-                                    multigrid, stencil, svc, svc_kernels)
-mat, CV, eps = convert.material_from_npz('REF_SOLVE_svc.npz')
-md = fe_kernels.rect_mesh(16, 16, eps_tot=eps)
+from pylabfea_tpu_torch.ops import (constitutive, fe3d, fe_kernels, jtensors,
+                                    multigrid, stencil, svc, svc_kernels,
+                                    volume)
+cpu = dict(device='cpu')
+mat, CV, eps = convert.material_from_npz('REF_SOLVE_svc.npz', **cpu)
+md = fe_kernels.rect_mesh(16, 16, eps_tot=eps, **cpu)
 state, hist = fe_kernels.solve_uniaxial(md, mat, CV, nsteps=2, n_inner=1)
+j2 = convert.material_from_params(dict(hill=[1.] * 6, sy=150., khard=500.,
+                                       drucker=0.), is_svc=False, **cpu)
+md3 = fe3d.box_mesh(2, 2, 2, eps_tot=0.002, **cpu)
+state3, hist3 = fe3d.solve_uniaxial3(md3, j2, CV, nsteps=2, n_inner=1)
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
 assert not bad, bad
-print('clean', float(hist[-1][0][1]))
+print('clean', float(hist[-1][0][1]), float(hist3[-1][0][2]))
 """
 
 
@@ -45,6 +53,44 @@ def test_port_runs_without_importing_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.startswith('clean')
+
+
+def test_constructors_default_to_the_card(monkeypatch):
+    """Without ``device`` every constructor asks for the card; where none
+    is visible it raises instead of building on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        config.default_device()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        fe_kernels.rect_mesh(4, 4)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        fe3d.box_mesh(2, 2, 2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.material_from_npz(os.path.join(ROOT, 'REF_SOLVE_svc.npz'))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.material_from_params(dict(hill=[1.] * 6, sy=1., khard=0.,
+                                          drucker=0.), is_svc=False)
+    md = fe_kernels.rect_mesh(4, 4, device='cpu')
+    arrays = {f: getattr(md, f).numpy() for f in ('B', 'Bsum', 'jacw', 'vel',
+                                                  'fixed', 'fixed_val',
+                                                  'force')}
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.mesh_from_arrays(arrays, md.grid, md.ndof, md.nel)
+    md3 = fe3d.box_mesh(2, 2, 2, device='cpu')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.mesh3_from_arrays({f: getattr(md3, f).numpy()
+                                   for f in arrays}, md3.grid, md3.ndof,
+                                  md3.nel)
+    st = fe3d.init_state3(md3, torch.eye(6, dtype=torch.float64))
+    st_arrays = {f: getattr(st, f).numpy() for f in ('u', 'sig', 'epl',
+                                                     'eps', 'elstiff')}
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.state3_from_arrays(st_arrays)
+    st_arrays['elstiff'] = st_arrays['elstiff'][..., 0]
+    st_arrays['u'] = st_arrays['u'][:2, :, :, 0]
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.state_from_arrays(st_arrays)
+    assert md.B.device.type == md3.B.device.type == 'cpu'
 
 
 def test_no_port_source_imports_jax():
@@ -90,13 +136,19 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(TypeError):
         sk.svc_f_grad(torch.empty(7, 6, **meta), torch.empty(5, 6, **meta),
                       torch.empty(5, **meta), 2.5, 0.1)
+    with pytest.raises(TypeError):
+        volume.k_apply3(torch.empty(36, 2, 2, 2, **meta),
+                        *(torch.empty(3, 3, 3, **meta) for _ in range(3)),
+                        1., 1., 1.)
 
 
 def test_build_key_tracks_sources_and_flags():
     srcs = build._sources()
-    assert {s.name for s in srcs} == {'svc_fgrad.cu', 'kapply2d.cu'}
+    assert {s.name for s in srcs} == {'svc_fgrad.cu', 'kapply2d.cu',
+                                      'kapply3d.cu'}
     assert build._key(srcs) == build._key(list(srcs))
+    assert len({build._library(s) for s in srcs}) == len(srcs)
     assert 'arch=compute_90a,code=sm_90a' in build.NVCC_FLAGS
     assert set(build.SIGNATURES) == {
-        f'pylabfea_{k}_{t}' for k in ('svc_fgrad', 'kapply2d')
+        f'pylabfea_{k}_{t}' for k in ('svc_fgrad', 'kapply2d', 'kapply3d')
         for t in ('f32', 'f64')}

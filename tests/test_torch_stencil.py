@@ -55,7 +55,8 @@ def _meshes(NX, NY):
           'right': {0: ('disp', 0.003)}, 'top': {1: ('force', 25.)},
           'nodes': [(3, 2, 1, 'disp', -0.001), (5, 5, 0, 'force', 4.)]}
     md = jfek.rect_mesh(NX, NY, LX=1., LY=0.8, bc=bc, dtype=jnp.float64)
-    mt = tfek.rect_mesh(NX, NY, LX=1., LY=0.8, bc=bc, dtype=torch.float64)
+    mt = tfek.rect_mesh(NX, NY, LX=1., LY=0.8, bc=bc, dtype=torch.float64,
+                        device='cpu')
     return md, mt
 
 

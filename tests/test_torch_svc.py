@@ -66,7 +66,7 @@ def _torch_material(dm):
               if k not in ('is_svc', 'dev_only', 'sdim3')}
     return convert.material_from_params(params, is_svc=dm.is_svc,
                                         dev_only=dm.dev_only,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device='cpu')
 
 
 def _close(a, b, rtol):
@@ -147,7 +147,8 @@ def test_yield_function_and_gradient_match_jax_f64(dev_only):
 
 
 def test_material_from_npz_matches_params():
-    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float64)
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float64,
+                                             device='cpu')
     ref = _torch_material(_jax_material())
     assert mat.sv.shape == (135, 6) and eps == 0.002 and CV.shape == (6, 6)
     for k in ('sv', 'dc', 'hill'):
@@ -161,13 +162,15 @@ def test_unported_materials_raise():
     dm = _jax_material()
     params = {k: np.asarray(v) for k, v in dm._asdict().items()
               if k not in ('is_svc', 'dev_only', 'sdim3')}
+    cpu = dict(device='cpu')
     with pytest.raises(NotImplementedError):
-        convert.material_from_params(params, is_svc=False)
+        convert.material_from_params(dict(params, tresca=True), is_svc=False,
+                                     **cpu)
     with pytest.raises(NotImplementedError):
-        convert.material_from_params(params, is_svc=True, sdim3=True)
+        convert.material_from_params(params, is_svc=True, sdim3=True, **cpu)
     with pytest.raises(NotImplementedError):
         convert.material_from_params(dict(params, tex=np.ones(3)),
-                                     is_svc=True)
+                                     is_svc=True, **cpu)
     with pytest.raises(NotImplementedError):
         convert.material_from_params(dict(params, sv=np.ones((4, 15))),
-                                     is_svc=True)
+                                     is_svc=True, **cpu)
