@@ -14,7 +14,8 @@ import torch
 from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
 from pylabfea_tpu_torch.ops.constitutive import DeviceMaterial
 from pylabfea_tpu_torch.ops.fe3d import MeshData3D, SolverState3
-from pylabfea_tpu_torch.ops.fe_kernels import MeshData, SolverState
+from pylabfea_tpu_torch.ops.fe_kernels import MeshData, SolverState, \
+    m64_matrix
 
 
 def material_from_params(params, is_svc, dev_only=False, sdim3=False,
@@ -83,7 +84,9 @@ def mesh_from_arrays(arrays, grid, ndof, nel, groups=None,
                      dtype=DTYPE_DEVICE, device=None):
     """MeshData from the JAX ``MeshData`` leaves as numpy arrays (keys B,
     Bsum, jacw, vel, fixed, fixed_val, force; ps_b2 when present) and its
-    static fields."""
+    static fields.  The float64 contraction matrix of the refinement
+    residual comes from ``B`` and ``jacw`` as given, so float32 tables
+    floor the refinement at their rounding."""
     if grid is None or np.ndim(arrays['B']) != 3:
         raise NotImplementedError('only structured 2-D grids are ported')
     if groups is not None or np.ndim(arrays.get('ps_b2', ())) == 3:
@@ -93,10 +96,13 @@ def mesh_from_arrays(arrays, grid, ndof, nel, groups=None,
     def ten(k, dt=dtype):
         return torch.as_tensor(np.array(arrays[k]), dtype=dt, device=device)
 
+    m64 = m64_matrix(arrays['B'], np.asarray(arrays['jacw']))
     return MeshData(B=ten('B'), Bsum=ten('Bsum'), jacw=ten('jacw'),
                     vel=ten('vel'), fixed=ten('fixed', torch.bool),
                     fixed_val=ten('fixed_val'), force=ten('force'),
-                    ndof=int(ndof), nel=int(nel), grid=tuple(grid))
+                    ndof=int(ndof), nel=int(nel), grid=tuple(grid),
+                    M64=torch.as_tensor(m64, dtype=torch.float64,
+                                        device=device))
 
 
 def mesh3_from_arrays(arrays, grid, ndof, nel, groups=None,

@@ -39,6 +39,16 @@ SIGNATURES = {
                                ctypes.c_float, _P, _P, _I, _P),
     'pylabfea_svc_fgrad_f64': (_P, _P, _P, _L, _I, _I, _D, _D, _P, _P, _I,
                                _P),
+    'pylabfea_svc_decision_f32': (_P, _P, _P, _L, _I, _I, ctypes.c_float,
+                                  ctypes.c_float, _P, _P),
+    'pylabfea_svc_decision_f64': (_P, _P, _P, _L, _I, _I, _D, _D, _P, _P),
+    'pylabfea_svc_fgrad_mm_f32': (_P, _P, _P, _L, _I, _I, ctypes.c_float,
+                                  ctypes.c_float, _P, _P, _P),
+    'pylabfea_svc_fgrad_mm_f64': (_P, _P, _P, _L, _I, _I, _D, _D, _P, _P,
+                                  _P),
+    'pylabfea_brent_step_f32': (_L, *(_P,) * 11, ctypes.c_float,
+                                ctypes.c_float, _P),
+    'pylabfea_brent_step_f64': (_L, *(_P,) * 11, _D, _D, _P),
     'pylabfea_kapply2d_f32': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply2d_f64': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply3d_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -2,23 +2,32 @@
 
 Ported: the analytic Hill/J2/Drucker criterion on 6-D Voigt stresses with
 linear and Voce hardening; the SVC yield function on 6-D stress features
-(``dev_only`` both ways, no work hardening, no texture) with its fused
-value + gradient through kernel A (``svc_kernels.svc_f_grad``); and the
+(``dev_only`` both ways, no work hardening, no texture) through the SVC
+kernels of ``svc_kernels`` (D for the decision function alone, A for the
+fast path's fused value + gradient, E for the faithful flow rule's); the
 production cutting-plane return map ``response_fast`` with the exact
-path-secant tangent, for both kinds.  sdim=3 (principal-space) materials,
+path-secant tangent; and the reference-faithful substepped return map
+``response`` with the yield-locus distance ``ml_yf_dist`` (bracket marching
++ Brent), for both kinds.  sdim=3 (principal-space) materials,
 work-hardening and texture SVC features raise ``NotImplementedError``.
 """
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from pylabfea_tpu_torch.config import yf_tolerance
 from pylabfea_tpu_torch.ops import jtensors as jt
-from pylabfea_tpu_torch.ops.svc_kernels import svc_f_grad
+from pylabfea_tpu_torch.ops import rootfind
+from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 #: scale on the cutting-plane projection's exit tolerance (1.0 = the
 #: reference's yf_tolerance band), as in the JAX module
 PROJ_TOL_SCALE = 1.0
+#: most bracket-marching steps per direction in ``ml_yf_dist``
+MAXMARCH = 400
+#: substeps of a subdividing lane in the faithful ``response``
+MAXIT = 50
 
 
 @dataclass
@@ -47,6 +56,13 @@ class DeviceMaterial:
     sdim3: bool = False
 
 
+def material_to(m: DeviceMaterial, dtype) -> DeviceMaterial:
+    """The material with its tensors cast to ``dtype`` and its host floats
+    kept (the float64 copy of a float64 commit)."""
+    return dataclasses.replace(m, hill=m.hill.to(dtype), sv=m.sv.to(dtype),
+                               dc=m.dc.to(dtype))
+
+
 def _require_ported(m: DeviceMaterial):
     """Raise for the material kinds the port does not have yet."""
     if m.sdim3:
@@ -63,19 +79,20 @@ def _require_ported(m: DeviceMaterial):
 # SVC yield function
 # -----------------------------------------------------------------
 def svc_decision(m: DeviceMaterial, x):
-    """SVC decision function on feature rows x (N, F)."""
-    return svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho, with_grad=False)[0]
+    """SVC decision function on feature rows x (N, F) (kernel D on the
+    card, the plain expansion formula on the CPU)."""
+    return sk.svc_decision(x, m.sv, m.dc, m.gamma, m.rho)
 
 
 def svc_gradient(m: DeviceMaterial, x):
     """Gradient of the SVC decision function w.r.t. features (N, F)."""
-    return svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho)[1]
+    return sk.svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho)[1]
 
 
 def svc_decision_and_gradient(m: DeviceMaterial, x):
     """Decision function and its gradient from one fused pass (kernel A on
     the card, the plain expansion formula on the CPU)."""
-    return svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho)
+    return sk.svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho)
 
 
 def _features(m: DeviceMaterial, sig, epl=None):
@@ -181,6 +198,84 @@ def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     return seq - flow_stress(m, peeq), g, hard_modulus(m, peeq)
 
 
+def _march(f_of, x, fac, active_of):
+    """Geometric bracket marching: scale the active lanes' abscissae by
+    ``fac`` until no lane is active or ``MAXMARCH`` steps have run.  The
+    inactive lanes are frozen, so reading the active flag on the host
+    every ``rootfind.check_every(x)`` steps gives the JAX while_loop's
+    result."""
+    f = f_of(x)
+    it, every = 0, rootfind.check_every(x)
+    while it < MAXMARCH:
+        act = active_of(x, f)
+        if it % every == 0 and not bool(act.any()):
+            break
+        x = torch.where(act, x * fac, x)
+        f = f_of(x)
+        it += 1
+    return x
+
+
+def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None):
+    """Distance of stresses to the SVC yield locus along their own loading
+    direction (the JAX ``ml_yf_dist``): geometric bracket marching (x0 *=
+    0.98 down, x1 *= 1.02 up) then Brent; lanes with a vanishing stress
+    (``seq < 0.01``), no root or a root beyond 4 sflow take the fallback
+    ``seq - 0.85 sflow``.  Every evaluation is one decision-function pass
+    (kernel D on the card)."""
+    seq = jt.seq_j2_voigt(sig)
+    kh = m.khard if khard is None else khard
+    sflow = m.sy + peeq * kh
+    small = seq < 0.01
+    su = sig / torch.where(small, 1., seq)[:, None]
+
+    def f_of(x):
+        return svc_decision(m, _features(m, x[:, None] * su, epl))
+
+    start = torch.where(su[:, 0] * su[:, 1] < -1.e-5, 0.5 * sflow, sflow)
+    top = 5. * sflow
+    x0 = _march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01))
+    x1 = _march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < top))
+    xs, ok = rootfind.brent(f_of, x0, x1, xtol=1.e-5)
+    good = ok & (xs < 4. * sflow) & ~small
+    return torch.where(good, seq - xs * jt.seq_j2_voigt(su),
+                       seq - 0.85 * sflow)
+
+
+def yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None):
+    """Distance-type yield function: the ML root find for SVC, plain yf
+    otherwise."""
+    if m.is_svc:
+        return ml_yf_dist(m, sig, peeq, epl, khard)
+    return yf(m, sig, peeq)
+
+
+def _flow_tan(m: DeviceMaterial, sig, peeq, CV, deps, epl):
+    """Flow increment and consistent tangent of the faithful return map
+    (the JAX ``_flow_tan``): the plastic strain increment on the lanes
+    that yield under the trial stress, and Ct = CV - ca ca^T / (a.ca + kh).
+    For SVC the gradient comes from one expansion-distance pass (kernel E
+    on the card).  Returns (pdot, Ct, khard)."""
+    dsig = deps @ CV.T
+    yld = yf(m, sig + dsig, peeq, epl) > yf_tolerance
+    if m.is_svc:
+        _, gfeat = sk.svc_f_grad_mm(_features(m, sig, epl), m.sv, m.dc,
+                                    m.gamma, m.rho)
+        a = _svc_stress_grad(m, sig, gfeat)
+        kh_sub = khard_of(m, gfeat, mask=yld)
+        kh_full = khard_of(m, gfeat)
+    else:
+        a = fgrad(m, sig)
+        kh_sub = kh_full = hard_modulus(m, peeq)
+    ca = a @ CV.T
+    aca = torch.sum(ca * a, dim=-1)
+    lam = torch.sum(ca * deps, dim=-1) / (aca + kh_sub)
+    pdot = torch.where(yld[:, None], lam[:, None] * a, 0.)
+    Ct = CV[None] - ca[:, :, None] * ca[:, None, :] \
+        / (aca + kh_full)[:, None, None]
+    return pdot, Ct, kh_full
+
+
 # -----------------------------------------------------------------
 # small dense helpers
 # -----------------------------------------------------------------
@@ -200,6 +295,11 @@ def _inv3x3(A):
                         torch.stack([c01, c11, c21], dim=-1),
                         torch.stack([c02, c12, c22], dim=-1)], dim=-2)
     return rows / det[..., None, None]
+
+
+def _solve3x3(A, b):
+    """Closed-form solve of (..., 3, 3) @ x = (..., 3)."""
+    return torch.einsum('...ij,...j->...i', _inv3x3(A), b)
 
 
 def _inv6x6_spd(CV):
@@ -366,5 +466,145 @@ def response_fast_chunked(m: DeviceMaterial, state, deps, CV, maxiter=12,
         return response_fast(m, state, deps, CV, maxiter, nsub)
     parts = [response_fast(m, (sig0[s:s + chunk], epl0[s:s + chunk]),
                            deps[s:s + chunk], CV, maxiter, nsub)
+             for s in range(0, N, chunk)]
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+
+
+# -----------------------------------------------------------------
+# reference-faithful return map
+# -----------------------------------------------------------------
+def _min_norm_inverse(deps_r):
+    """Inverse of G = A A^T (with its singular-lane guard) of the min-norm
+    tangent correction, A the (3, 6) strain-projection matrix of the
+    normal components d of ``deps_r``.  Returns (d, s2 = |d|^2, G^-1)."""
+    d = deps_r[:, 0:3]
+    s2 = torch.sum(d * d, dim=-1)
+    # G = s2 I + d_i d_j off the diagonal (A includes the shear columns,
+    # which contribute d_k^2 to every diagonal entry)
+    eye3 = torch.eye(3, dtype=d.dtype, device=d.device)[None]
+    G = d[:, :, None] * d[:, None, :] * (1. - eye3) \
+        + s2[:, None, None] * eye3
+    Gsafe = G + eye3 * torch.where(s2 < 1e-30, 1., 0.)[:, None, None]
+    return d, s2, _inv3x3(Gsafe)
+
+
+def _min_norm_correction(d, s2, Ginv, dsig_x):
+    """Symmetric (N, 6, 6) tangent correction x = A^T y with (A A^T) y =
+    dsig_x[:, 0:3] in the normal-normal block."""
+    yv = torch.einsum('...ij,...j->...i', Ginv, dsig_x[:, 0:3])
+    yv = torch.where((s2 > 1e-30)[:, None], yv, 0.)
+    x0 = d[:, 0] * yv[:, 0]
+    x1 = d[:, 1] * yv[:, 1]
+    x2 = d[:, 2] * yv[:, 2]
+    x3 = d[:, 2] * yv[:, 1] + d[:, 1] * yv[:, 2]
+    x4 = d[:, 2] * yv[:, 0] + d[:, 0] * yv[:, 2]
+    x5 = d[:, 1] * yv[:, 0] + d[:, 0] * yv[:, 1]
+    blk = torch.stack([torch.stack([x0, x5, x4], -1),
+                       torch.stack([x5, x1, x3], -1),
+                       torch.stack([x4, x3, x2], -1)], -2)
+    Ct = torch.zeros((d.shape[0], 6, 6), dtype=d.dtype, device=d.device)
+    Ct[:, 0:3, 0:3] = blk
+    return Ct
+
+
+def response(m: DeviceMaterial, state, deps, CV):
+    """Reference-faithful batched return map (the JAX ``response``, the
+    host ``Material.response_batch`` control flow with masked lanes):
+    elastic predictor on the yield-locus distance, step split at the
+    locus, one trial step deciding subdivision into ``MAXIT`` substeps,
+    then the substeps with excess-stress correction and the min-norm
+    tangent correction.
+
+    state = (sig (N, 6), epl (N, 6)); deps (N, 6); CV (6, 6) tensor.
+    JAX runs all ``MAXIT`` substeps with the finished lanes frozen; this
+    runs the largest substep count of any lane (one host read), which
+    gives the same result.  Returns (fy, sig, depl, tangent (N, 6, 6))."""
+    _require_ported(m)
+    sig0, epl0 = state
+    N = sig0.shape[0]
+    dt = sig0.dtype
+    peeq0 = jt.eps_eq(epl0)
+    toler = yf_tolerance * flow_stress(m, peeq0)
+    dsig = deps @ CV.T
+    fy_pred = yf_dist(m, sig0 + dsig, peeq0, epl0)
+    elastic = fy_pred < toler
+
+    # plastic branch (computed for all lanes, masked at the end)
+    fy0 = yf(m, sig0, peeq0, epl0)
+    split = fy0 < -0.15
+    if m.is_svc:
+        # host convention: the split distance is evaluated at ZERO plastic
+        # strain (response_batch passes zeros_like(epl))
+        fy0_d = ml_yf_dist(m, sig0, torch.zeros(N, dtype=dt,
+                                                device=sig0.device),
+                           torch.zeros_like(epl0))
+        fy0 = torch.where(split, fy0_d, fy0)
+    seq_dsig = jt.seq_j2_voigt(dsig) if m.is_svc else seq_hill(m, dsig)
+    st_scal = torch.where(split, 1. + fy0 / seq_dsig, 1.)
+    deps_el = deps * (1. - st_scal)[:, None]
+    sig = sig0 + deps_el @ CV.T
+    grad = torch.where(split[:, None, None],
+                       CV[None] * (1. - st_scal)[:, None, None], 0.)
+    deps_r = deps - deps_el
+
+    # trial with the full remaining step -> subdivide?
+    ddepl_t, t_st_t, kh_t = _flow_tan(m, sig, peeq0, CV, deps_r, epl0)
+    sig_t = sig + torch.einsum('nij,nj->ni', t_st_t, deps_r)
+    fy_t = yf_dist(m, sig_t, jt.eps_eq(epl0 + ddepl_t), epl0 + ddepl_t,
+                   kh_t)
+    sub = fy_t > toler
+    deps_r = torch.where(sub[:, None], deps_r / MAXIT, deps_r)
+    nsteps = torch.where(sub, MAXIT, 1)
+    w_step = (st_scal / nsteps)[:, None, None]
+    SV = _compliance(CV)
+    d, s2, Ginv = _min_norm_inverse(deps_r)
+
+    depl = torch.zeros_like(sig)
+    fy = fy_t
+    for it in range(int(nsteps.max())):
+        act = it < nsteps
+        ddepl, t_st, kh_it = _flow_tan(m, sig, peeq0, CV, deps_r, epl0)
+        eplt = epl0 + depl + ddepl
+        sig_n = sig + torch.einsum('nij,nj->ni', t_st, deps_r)
+        fy_n = yf_dist(m, sig_n, jt.eps_eq(eplt), eplt, kh_it)
+        over = fy_n > toler
+        seq_n = jt.seq_j2_voigt(sig_n) if m.is_svc else seq_hill(m, sig_n)
+        seq_n = torch.where(seq_n == 0., 1., seq_n)
+        dsig_x = torch.where(over[:, None], sig_n * (fy_n / seq_n)[:, None],
+                             0.)
+        sig_c = sig_n - dsig_x
+        ddepl_c = ddepl + dsig_x @ SV.T
+        t_st_c = t_st - torch.where(over[:, None, None],
+                                    _min_norm_correction(d, s2, Ginv,
+                                                         dsig_x), 0.)
+        eplt_c = epl0 + depl + ddepl_c
+        fy_c = yf_dist(m, sig_c, jt.eps_eq(eplt_c), eplt_c, kh_it)
+        # freeze the lanes whose substeps are done
+        sig = torch.where((act & over)[:, None], sig_c,
+                          torch.where(act[:, None], sig_n, sig))
+        depl = depl + torch.where(act[:, None], torch.where(
+            over[:, None], ddepl_c, ddepl), 0.)
+        grad = torch.where(act[:, None, None], grad + t_st_c * w_step, grad)
+        fy = torch.where(act, torch.where(over, fy_c, fy_n), fy)
+
+    # merge elastic and plastic lanes
+    return (torch.where(elastic, fy_pred, fy),
+            torch.where(elastic[:, None], sig0 + dsig, sig),
+            torch.where(elastic[:, None], 0., depl),
+            torch.where(elastic[:, None, None], CV[None], grad))
+
+
+def response_chunked(m: DeviceMaterial, state, deps, CV, chunk=1 << 20):
+    """``response`` over chunks of ``chunk`` points (the last one ragged):
+    bounds the live per-point temporaries of very large batches.  Lanes
+    are independent, so chunking changes no result.  On the card the
+    kernels write no (N, nsv) matrix, so the default keeps 2^20 points,
+    one 1024^2 mesh, in one chunk."""
+    sig0, epl0 = state
+    N = sig0.shape[0]
+    if N <= chunk:
+        return response(m, state, deps, CV)
+    parts = [response(m, (sig0[s:s + chunk], epl0[s:s + chunk]),
+                      deps[s:s + chunk], CV)
              for s in range(0, N, chunk)]
     return tuple(torch.cat([p[i] for p in parts]) for i in range(4))

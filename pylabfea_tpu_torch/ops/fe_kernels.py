@@ -9,18 +9,21 @@ solvers as per-component tuples.  Displacement BCs are identity rows on
 fixed dofs (masking around the apply).
 
 Ported: single-material plane-strain meshes, the multigrid-preconditioned
-CG solve, the batched SVC return map and ``load_step_split`` with its
-warm-start/hierarchy-reuse protocol.  Plane stress, multi-material meshes,
-the convergence gate, f64/faithful commits and iterative refinement raise
+CG solve, the batched return maps (fast and reference-faithful) and
+``load_step_split`` with its warm-start/hierarchy-reuse protocol, the
+convergence gate, mixed-precision refinement, the float64 commit and the
+faithful tail.  Plane stress and multi-material meshes raise
 ``NotImplementedError``.
 """
 import dataclasses
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
+from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device, \
+    yf_tolerance
 from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import stencil as st
 
@@ -41,6 +44,7 @@ class MeshData:
     ndof: int
     nel: int
     grid: tuple              # (NX, NY, lx, ly, uniax)
+    M64: torch.Tensor        # (64, 36) float64 m64_matrix of the geometry
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -182,7 +186,17 @@ def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
                     vel=dev(vel), fixed=dev(fixed, torch.bool),
                     fixed_val=dev(fixed_val), force=dev(force),
                     ndof=2 * nnX * nnY, nel=NX * NY,
-                    grid=(NX, NY, lx, ly, uniax))
+                    grid=(NX, NY, lx, ly, uniax),
+                    M64=dev(m64_matrix(Bs, vel * 4.), torch.float64))
+
+
+def m64_matrix(B, jacw):
+    """The (64, 36) element-stiffness contraction matrix M[(i,j),(a,b)] =
+    jacw sum_g B[g,a,i] B[g,b,j] in float64 (numpy), from the geometry as
+    given: ``rect_mesh`` passes the unrounded float64 tables, so the
+    refinement residual measures the error against the true operator."""
+    B = np.asarray(B, np.float64)
+    return float(jacw) * np.einsum('gai,gbj->ijab', B, B).reshape(64, 36)
 
 
 # -----------------------------------------------------------------
@@ -264,19 +278,26 @@ def element_deps(md: MeshData, du):
 
 def respond_grouped(md: MeshData, mat, CV, sig, epl, deps, fast=True,
                     maxiter=12, nsub=1):
-    """Batched return map of a single-material mesh (one chunked
-    ``response_fast``).  Returns (f, sig, depl, tangent rows)."""
-    if not fast:
-        raise NotImplementedError('the reference-faithful return map is not '
-                                  'ported yet')
+    """Batched return map of a single-material mesh: one chunked
+    ``response_fast`` or, with ``fast=False``, the chunked
+    reference-faithful ``response``.  Returns (f, sig, depl, tangent
+    rows)."""
     CVd = torch.as_tensor(CV, dtype=sig.dtype, device=sig.device)
-    return con.response_fast_chunked(mat, (sig, epl), deps, CVd, maxiter,
-                                     nsub)
+    if fast:
+        return con.response_fast_chunked(mat, (sig, epl), deps, CVd, maxiter,
+                                         nsub)
+    return con.response_chunked(mat, (sig, epl), deps, CVd)
 
 
 # -----------------------------------------------------------------
 # load step
 # -----------------------------------------------------------------
+#: most extra rounds of a gated step (and of its faithful tail)
+MAX_INNER = 15
+#: float32 tangent-stall threshold of the gate, relative to |CV|_F
+GATE_DST_RTOL = 1e-4
+
+
 @dataclass
 class SolverState:
     u: torch.Tensor          # (2, nnX, nnY)
@@ -324,6 +345,37 @@ def _mg_solve(md: MeshData, kes, bc_val, force, cg_tol, cg_maxiter, x0):
     return _merge(duT), res, it
 
 
+def _residual_f64_grid(md: MeshData, M64, elstiff, du64, force):
+    """True residual ``force - K du`` of the BC-embedded system in float64
+    against the operator of the unrounded geometry ``M64``, the tangent
+    field upcast exactly (kernel B in float64 on the card); zero on fixed
+    rows."""
+    NX, NY = md.grid[:2]
+    els = elstiff_planes(md, elstiff).to(torch.float64)
+    Kp = (M64 @ els.reshape(36, NX * NY)).reshape(8, 8, NX, NY)
+    q = st.k_apply(Kp, du64[0], du64[1])
+    return _merge(tuple(torch.where(f, 0., fr.to(torch.float64) - qq)
+                        for f, fr, qq in zip(_split(md.fixed),
+                                             _split(force), q)))
+
+
+def refine_du(md: MeshData, kes, elstiff, du, bc_val, force, cg_tol,
+              cg_maxiter, n=1):
+    """Mixed-precision iterative refinement of a linear-solve result: the
+    true residual in float64 against the unrounded operator, the
+    correction solved with the SAME hierarchy in the working dtype and
+    accumulated in float64, ``n`` times."""
+    M64 = md.M64
+    du64 = du.to(torch.float64)
+    zero = torch.zeros_like(bc_val)
+    for _ in range(n):
+        r = _residual_f64_grid(md, M64, elstiff, du64, force)
+        d, _, _ = _mg_solve(md, kes, zero, r.to(du.dtype), cg_tol,
+                            cg_maxiter, zero)
+        du64 = du64 + d.to(torch.float64)
+    return du64.to(du.dtype)
+
+
 def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
                         fast=True, nsub=4):
     """Return map at the increment ``du`` and the tangent update: element
@@ -339,12 +391,33 @@ def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
     return fy, sig_n, depl_n, elstiff, deps, dst.max()
 
 
+def commit_f64_response(md: MeshData, state: SolverState, mat, CV, du,
+                        fast=True, nsub=4):
+    """The float64 commit of a float32 step: the response to the
+    increment ``du`` re-integrated from the entering state with the
+    float64 copy of the material.  Returns float64 (f, sig, depl)."""
+    f64 = torch.float64
+    return respond_grouped(md, con.material_to(mat, f64), CV,
+                           state.sig.to(f64), state.epl.to(f64),
+                           element_deps(md, du.to(f64)), fast=fast,
+                           maxiter=12, nsub=nsub)[:3]
+
+
+def _gate_scale(mat):
+    """Normalization of the yield excess in the convergence gate: 1 for
+    SVC (dimensionless decision values), the yield strength for analytic
+    materials (f = seq - sflow in stress units)."""
+    return 1. if mat.is_svc else float(mat.sy)
+
+
 def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
                     n_inner=2, cg_tol=None, cg_maxiter=100, fast=True,
                     nsub=4, du0=None, kes0=None, dst0=None, gate=False,
                     n_refine=0, commit_f64=False, commit_faithful=False):
-    """One load step: ``n_inner + 1`` rounds of (MG-CG solve with the
-    current tangent field, return map, tangent update).
+    """One load step: rounds of (MG-CG solve with the current tangent
+    field, return map, tangent update), ``n_inner + 1`` of them or, with
+    ``gate``, until the convergence gate fires (the JAX
+    ``load_step_split``).
 
     ``du0`` warm-starts the first solve (the previous step's ``diag['du']``
     at equal load fractions); ``kes0``/``dst0`` pass the previous step's
@@ -352,20 +425,44 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     (``diag['dstiff']``): the hierarchy is rebuilt only when ``dst > 1e-3``
     (the tangent field changed).  In float32 a warm start is used only when
     the tangent did not change (a stale increment stalls f32 CG); float64
-    keeps it unconditionally.  Returns (new state, diag) with the JAX
-    ``diag`` keys."""
-    if gate or n_refine or commit_f64 or commit_faithful:
-        raise NotImplementedError('gate, n_refine, commit_f64 and '
-                                  'commit_faithful are not ported yet')
+    keeps it unconditionally.
+
+    ``gate=True``: iterate (at least ``n_inner + 1`` rounds, at most
+    ``MAX_INNER + 1``) until the normalized yield excess is within
+    tolerance and the tangent stopped changing: ``dst <= 1e-3`` in
+    float64; in float32, where tangents oscillate at the rounding floor,
+    ``dst`` against ``GATE_DST_RTOL * |CV|_F`` with a deep hold (a tenth
+    of it) or two holds in a row.  ``n_refine``: that many
+    mixed-precision refinement passes after every solve (``refine_du``).  ``commit_f64`` (float32 states): the committed
+    stress and plastic strain are the last response recomputed in float64
+    from the entering state.  ``commit_faithful``: once the fast phase
+    converges (or spends its budget), the same loop continues with the
+    reference-faithful return map until the gate fires again, so the
+    committed state is the faithful integrator's equilibrium; with
+    ``commit_f64`` the float64 commit is faithful too.  Returns (new
+    state, diag) with the JAX ``diag`` keys."""
     bc_val = md.fixed_val * load_frac
     force = md.force * load_frac
     elstiff = state.elstiff
     f64 = elstiff.dtype == torch.float64
     tol = cg_tol if cg_tol is not None else (1.e-11 if f64 else 1.e-6)
+    count = (MAX_INNER if gate else n_inner) + 1
+    faithful_tail = bool(commit_faithful and fast)
+    tail = False
+    if gate or faithful_tail:
+        # the tangent-stall threshold: absolute in float64, relative to
+        # |CV|_F in float32 (its tangents oscillate at the rounding floor
+        # far above 1e-3)
+        dst_exit = 1.e-3 if f64 else max(1.e-3, GATE_DST_RTOL * float(
+            torch.linalg.norm(torch.as_tensor(CV, dtype=md.dtype))))
+    held = False
     du, kes = du0, kes0
     dst = None if dst0 is None else float(dst0)
     cg_hist = []
-    for _ in range(n_inner + 1):
+    converged = False
+    i = 0
+    total_count = count + (MAX_INNER if faithful_tail else 0)
+    while i < total_count:
         if kes is None or dst is None or dst > 1.e-3:
             kes = _hier_kes(md, elstiff)
         if du is None:
@@ -376,13 +473,50 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             x0 = torch.zeros_like(du)
         du, cg_res, cg_it = _mg_solve(md, kes, bc_val, force, tol,
                                       cg_maxiter, x0)
+        if n_refine:
+            du = refine_du(md, kes, elstiff, du, bc_val, force, tol,
+                           cg_maxiter, n=n_refine)
         cg_hist.append(cg_it)
         fy, sig_n, depl_n, elstiff, deps, dst_t = _respond_and_update(
             md, dataclasses.replace(state, elstiff=elstiff), mat, CV, du,
-            fast, nsub)
-        # host read of the tangent change once per inner iteration: it
-        # decides the next hierarchy rebuild and warm start
+            fast and not tail, nsub)
+        # host read of the tangent change once per round: it decides the
+        # next hierarchy rebuild, the warm start and the gate
         dst = float(dst_t)
+        if tail or (gate and i >= min(n_inner, count - 1)):
+            fmax = float(torch.max(fy / _gate_scale(mat)))
+            dst_ok = (dst <= dst_exit) if f64 else (
+                dst <= 0.1 * dst_exit or (held and dst <= dst_exit))
+            if fmax <= yf_tolerance * 1.0001 and dst_ok:
+                if faithful_tail and not tail:
+                    # fast phase converged: continue with the faithful map
+                    tail, held = True, False
+                else:
+                    converged = True
+                    break
+            else:
+                held = dst <= dst_exit
+                if faithful_tail and not tail and i >= count - 1:
+                    # fast budget spent unconverged: the commit must still
+                    # be faithful
+                    tail, held = True, False
+        elif faithful_tail and not tail and i == count - 1:
+            tail, held = True, False
+        i += 1
+    if not converged and (gate or tail):
+        fmax = float(torch.max(fy / _gate_scale(mat)))
+        if fmax > yf_tolerance * 1.0001:
+            warnings.warn(
+                f'load_step_split: no convergence of the plasticity '
+                f'algorithm within max_inner={MAX_INNER} iterations '
+                f'(normalized yield excess {fmax:.3g} > tolerance '
+                f'{yf_tolerance:.1e}); reduce the load increment or '
+                f'increase nsub', stacklevel=2)
+    if commit_f64 and state.sig.dtype == torch.float32:
+        # tangents and du stay float32
+        dt = state.sig.dtype
+        fy, sig_n, depl_n = (x.to(dt) for x in commit_f64_response(
+            md, state, mat, CV, du, fast and not commit_faithful, nsub))
     new = SolverState(u=state.u + du, sig=sig_n, epl=state.epl + depl_n,
                       eps=state.eps + deps, elstiff=elstiff)
     diag = {'fy_max': fy.max(), 'dstiff': dst, 'cg_res': cg_res,
@@ -396,10 +530,13 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
 
 def solve_uniaxial(md: MeshData, mat, CV, nsteps=20, n_inner=3,
                    dtype=DTYPE_DEVICE, cg_tol=None, cg_maxiter=2000,
-                   fast=True, nsub=4):
+                   fast=True, nsub=4, gate=False, n_refine=0,
+                   commit_faithful=False):
     """Apply the boundary displacement in ``nsteps`` equal increments,
     threading ``du``, the hierarchy and the tangent change from step to
-    step.  Returns (final state, [(glob_sig, glob_eps, glob_epl)])."""
+    step; ``gate``, ``n_refine`` and ``commit_faithful`` as in
+    ``load_step_split``.  Returns (final state, [(glob_sig, glob_eps,
+    glob_epl)])."""
     state = init_state(md, CV, dtype=dtype)
     hist = []
     du0 = kes0 = dst0 = None
@@ -407,7 +544,8 @@ def solve_uniaxial(md: MeshData, mat, CV, nsteps=20, n_inner=3,
         state, diag = load_step_split(
             md, state, mat, CV, 1. / nsteps, n_inner=n_inner, cg_tol=cg_tol,
             cg_maxiter=cg_maxiter, fast=fast, nsub=nsub, du0=du0, kes0=kes0,
-            dst0=dst0)
+            dst0=dst0, gate=gate, n_refine=n_refine,
+            commit_faithful=commit_faithful)
         du0, kes0, dst0 = diag['du'], diag['kes'], diag['dstiff']
         hist.append((diag['glob_sig'], diag['glob_eps'], diag['glob_epl']))
     return state, hist

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from pylabfea_tpu_torch.ops import fe_kernels as fek
+from pylabfea_tpu_torch.ops import rootfind
 from pylabfea_tpu_torch.ops import stencil
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 from pylabfea_tpu_torch.ops import volume
@@ -69,6 +70,65 @@ def test_svc_kernel_matches_plain(cuda, n, nsv, dtype, tol):
     assert float((g.double() - gr).abs().max()) <= gbound
 
 
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('n,nsv', [(1, 3), (1000, 300), (4099, 600)])
+def test_svc_mm_kernels_match_plain(cuda, n, nsv, dtype, tol):
+    """Kernels D and E: N off the 256-thread block, nsv beyond one
+    256-SV shared-memory chunk; two launches give the same bits."""
+    rng = np.random.default_rng(2)
+    x, sv = (torch.as_tensor(rng.normal(size=s) * 0.7, dtype=dtype,
+                             device=cuda) for s in ((n, 6), (nsv, 6)))
+    dc = torch.as_tensor(rng.uniform(-1., 1., nsv), dtype=dtype, device=cuda)
+    d0, e0 = sk.svc_decision.launches, sk.svc_f_grad_mm.launches
+    fd = sk.svc_decision(x, sv, dc, 2.5, 0.3)
+    fd2 = sk.svc_decision(x, sv, dc, 2.5, 0.3)
+    fe, ge = sk.svc_f_grad_mm(x, sv, dc, 2.5, 0.3)
+    fe2, ge2 = sk.svc_f_grad_mm(x, sv, dc, 2.5, 0.3)
+    torch.cuda.synchronize()
+    assert (sk.svc_decision.launches, sk.svc_f_grad_mm.launches) \
+        == (d0 + 2, e0 + 2)
+    assert torch.equal(fd, fd2) and torch.equal(fe, fe2) \
+        and torch.equal(ge, ge2)
+    fr, gr = sk.svc_f_grad_plain(x.double(), sv.double(), dc.double(), 2.5,
+                                 0.3)
+    bound = tol * max(1., float(dc.abs().sum()))
+    assert float((fd.double() - fr).abs().max()) <= bound
+    assert float((fe.double() - fr).abs().max()) <= bound
+    gbound = bound * 2. * 2.5 * float(x.abs().max() + sv.abs().max())
+    assert float((ge.double() - gr).abs().max()) <= gbound
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_brent_kernel_root_find_matches_cpu(cuda, dtype):
+    """Kernel F: a whole root find on the card takes the CPU's iterates
+    (the function itself is plain torch), N off the 256-thread block."""
+    rng = np.random.default_rng(42)
+    n = 1001
+    a = rng.uniform(-3., 1., n)
+    b = a + rng.uniform(0.5, 6., n)
+    k = rng.uniform(0.3, 4., n)
+    lo, hi = np.tanh(k * a), np.tanh(k * b)
+    s = rng.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo))
+    b[::7] = a[::7] - 1.                      # no sign change: unconverged
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        kt, st = (torch.as_tensor(v, dtype=dtype, device=dev) for v in (k, s))
+        n0 = rootfind.brent_step.launches
+        out[dev.type] = rootfind.brent(
+            lambda x: torch.tanh(kt * x) - st,
+            torch.as_tensor(a, dtype=dtype, device=dev),
+            torch.as_tensor(b, dtype=dtype, device=dev))
+        launched = rootfind.brent_step.launches - n0
+        assert (launched > 0) == (dev.type == 'cuda')
+    root, ok = out['cuda']
+    assert torch.equal(ok.cpu(), out['cpu'][1])
+    assert bool(ok[1::7].all()) and not bool(ok[::7].any())
+    # tanh on the card and on the CPU may differ in the last bit
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    assert float((root.cpu() - out['cpu'][0]).abs().max()) <= tol
+
+
 def _k3(shape, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     C6 = rng.normal(size=(6, 6) + shape)
@@ -111,6 +171,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         sk.svc_f_grad(torch.zeros(4, 6, device=cuda),
                       torch.zeros(3, 6, device=cuda, dtype=torch.float64),
                       torch.zeros(3, device=cuda), 1., 0.)
+    st = {k: torch.zeros(5, device=cuda) for k in rootfind.STATE}
+    with pytest.raises(TypeError):                       # done not bool
+        rootfind.brent_step(st, 1e-5, 1e-15)
+    st.update(done=torch.zeros(5, dtype=torch.bool, device=cuda),
+              ok=torch.zeros(5, dtype=torch.bool, device=cuda))
+    st['xcur'] = torch.zeros(10, device=cuda)[::2]
+    with pytest.raises(ValueError):                      # not contiguous
+        rootfind.brent_step(st, 1e-5, 1e-15)
+    for fn in (sk.svc_decision, sk.svc_f_grad_mm):
+        with pytest.raises(ValueError):
+            fn(x, torch.zeros(3, 5, device=cuda), torch.zeros(3, device=cuda),
+               1., 0.)
+        with pytest.raises(TypeError):
+            fn(torch.zeros(4, 6, device=cuda),
+               torch.zeros(3, 6, device=cuda, dtype=torch.float64),
+               torch.zeros(3, device=cuda), 1., 0.)
     Cp, u0, u1, u2 = _k3((4, 3, 5), torch.float32, cuda)
     h = (1., 1., 1.)
     with pytest.raises(ValueError):                      # not contiguous

@@ -152,13 +152,6 @@ def test_solve_uniaxial_matches_jax():
 
 
 def test_unported_options_raise():
-    _, mat, CV, eps = _materials()
-    _, mt = _meshes(eps)
-    st = tfek.init_state(mt, CV, dtype=torch.float64)
-    for kw in (dict(gate=True), dict(n_refine=1), dict(commit_f64=True),
-               dict(commit_faithful=True), dict(fast=False)):
-        with pytest.raises(NotImplementedError):
-            tfek.load_step_split(mt, st, mat, CV, 0.25, **kw)
     with pytest.raises(NotImplementedError):
         tfek.rect_mesh(4, 4, planestress=True, device='cpu')
     with pytest.raises(NotImplementedError):

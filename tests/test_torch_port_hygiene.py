@@ -11,7 +11,7 @@ import torch
 
 from pylabfea_tpu_torch import config, convert
 from pylabfea_tpu_torch.kernels import build
-from pylabfea_tpu_torch.ops import fe3d, fe_kernels, stencil, volume
+from pylabfea_tpu_torch.ops import fe3d, fe_kernels, rootfind, stencil, volume
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 # One torch thread: the suite runs several test processes at once, and
@@ -30,12 +30,18 @@ import pylabfea_tpu_torch
 from pylabfea_tpu_torch import convert
 from pylabfea_tpu_torch.kernels import build
 from pylabfea_tpu_torch.ops import (constitutive, fe3d, fe_kernels, jtensors,
-                                    multigrid, stencil, svc, svc_kernels,
-                                    volume)
+                                    multigrid, rootfind, stencil, svc,
+                                    svc_kernels, volume)
 cpu = dict(device='cpu')
 mat, CV, eps = convert.material_from_npz('REF_SOLVE_svc.npz', **cpu)
 md = fe_kernels.rect_mesh(16, 16, eps_tot=eps, **cpu)
 state, hist = fe_kernels.solve_uniaxial(md, mat, CV, nsteps=2, n_inner=1)
+f64 = dict(dtype=torch.float64, **cpu)
+mat64, _, _ = convert.material_from_npz('REF_SOLVE_svc.npz', **f64)
+md4 = fe_kernels.rect_mesh(4, 4, eps_tot=0.001, **f64)
+state4, hist4 = fe_kernels.solve_uniaxial(md4, mat64, CV, nsteps=2,
+                                          dtype=torch.float64, gate=True,
+                                          commit_faithful=True)
 j2 = convert.material_from_params(dict(hill=[1.] * 6, sy=150., khard=500.,
                                        drucker=0.), is_svc=False, **cpu)
 md3 = fe3d.box_mesh(2, 2, 2, eps_tot=0.002, **cpu)
@@ -43,7 +49,8 @@ state3, hist3 = fe3d.solve_uniaxial3(md3, j2, CV, nsteps=2, n_inner=1)
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
 assert not bad, bad
-print('clean', float(hist[-1][0][1]), float(hist3[-1][0][2]))
+print('clean', float(hist[-1][0][1]), float(hist4[-1][0][1]),
+      float(hist3[-1][0][2]))
 """
 
 
@@ -121,11 +128,23 @@ def test_cpu_tensors_take_plain_versions_without_launch():
     ref = stencil.k_apply_plain(Kp, u0, u1)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     x, sv, dc = torch.rand(7, 6), torch.rand(5, 6), torch.rand(5)
-    m0 = sk.svc_f_grad.launches
+    counts = [c.launches for c in (sk.svc_f_grad, sk.svc_decision,
+                                   sk.svc_f_grad_mm, rootfind.brent_step)]
     f, g = sk.svc_f_grad(x, sv, dc, 2.5, 0.1)
     fr, gr = sk.svc_f_grad_plain(x, sv, dc, 2.5, 0.1)
     assert torch.equal(f, fr) and torch.equal(g, gr)
-    assert (stencil.k_apply.launches, sk.svc_f_grad.launches) == (n0, m0)
+    assert torch.equal(sk.svc_decision(x, sv, dc, 2.5, 0.1), fr)
+    fm, gm = sk.svc_f_grad_mm(x, sv, dc, 2.5, 0.1)
+    assert torch.equal(fm, fr) and torch.equal(gm, gr)
+    st = {k: torch.rand(7) for k in rootfind.STATE}
+    st.update(done=torch.rand(7) < 0.5, ok=torch.zeros(7, dtype=torch.bool))
+    new = rootfind.brent_step(st, 1e-5, 1e-15)
+    ref = rootfind.brent_step_plain(st, 1e-5, 1e-15)
+    assert all(torch.equal(new[k], ref[k]) for k in rootfind.STATE)
+    assert stencil.k_apply.launches == n0
+    assert [c.launches for c in (sk.svc_f_grad, sk.svc_decision,
+                                 sk.svc_f_grad_mm, rootfind.brent_step)] \
+        == counts
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -133,9 +152,13 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(TypeError):
         stencil.k_apply(torch.empty(8, 8, 4, 3, **meta),
                         torch.empty(5, 4, **meta), torch.empty(5, 4, **meta))
+    for fn in (sk.svc_f_grad, sk.svc_decision, sk.svc_f_grad_mm):
+        with pytest.raises(TypeError):
+            fn(torch.empty(7, 6, **meta), torch.empty(5, 6, **meta),
+               torch.empty(5, **meta), 2.5, 0.1)
     with pytest.raises(TypeError):
-        sk.svc_f_grad(torch.empty(7, 6, **meta), torch.empty(5, 6, **meta),
-                      torch.empty(5, **meta), 2.5, 0.1)
+        rootfind.brent_step({k: torch.empty(5, **meta)
+                             for k in rootfind.STATE}, 1e-5, 1e-15)
     with pytest.raises(TypeError):
         volume.k_apply3(torch.empty(36, 2, 2, 2, **meta),
                         *(torch.empty(3, 3, 3, **meta) for _ in range(3)),
@@ -144,11 +167,11 @@ def test_other_devices_raise_instead_of_falling_back():
 
 def test_build_key_tracks_sources_and_flags():
     srcs = build._sources()
-    assert {s.name for s in srcs} == {'svc_fgrad.cu', 'kapply2d.cu',
-                                      'kapply3d.cu'}
+    stems = ('svc_fgrad', 'kapply2d', 'kapply3d', 'svc_decision',
+             'svc_fgrad_mm', 'brent_step')
+    assert {s.name for s in srcs} == {f'{k}.cu' for k in stems}
     assert build._key(srcs) == build._key(list(srcs))
     assert len({build._library(s) for s in srcs}) == len(srcs)
     assert 'arch=compute_90a,code=sm_90a' in build.NVCC_FLAGS
     assert set(build.SIGNATURES) == {
-        f'pylabfea_{k}_{t}' for k in ('svc_fgrad', 'kapply2d', 'kapply3d')
-        for t in ('f32', 'f64')}
+        f'pylabfea_{k}_{t}' for k in stems for t in ('f32', 'f64')}

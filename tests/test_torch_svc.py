@@ -1,9 +1,11 @@
-"""PyTorch port, kernel A: the SVC decision function + gradient.
+"""PyTorch port, kernels A, D and E: the SVC decision function (D) and the
+decision function + gradient (A: exact distances, E: matmul expansion).
 
-The port's plain version (what the kernel wrapper runs on CPU tensors) is
-held against the TPU kernel ``svc_f_grad_pallas`` in interpret mode (f32)
-and against the JAX ``constitutive`` SVC functions (f64).  Inputs are made
-with numpy from a seed and handed to both.
+The port's plain versions (what the kernel wrappers run on CPU tensors) are
+held against the TPU kernels ``svc_f_grad_pallas``,
+``svc_decision_pallas`` and ``svc_f_grad_pallas_mxu`` in interpret mode
+(f32) and against the JAX ``constitutive`` and ``svc`` functions (f64).
+Inputs are made with numpy from a seed and handed to both.
 """
 import os
 
@@ -14,7 +16,9 @@ import torch
 
 from pylabfea_tpu.ops import constitutive as jcon
 from pylabfea_tpu.ops import svc as jsvc
-from pylabfea_tpu.ops.pallas_kernels import svc_f_grad_pallas
+from pylabfea_tpu.ops.pallas_kernels import (svc_decision_pallas,
+                                             svc_f_grad_pallas,
+                                             svc_f_grad_pallas_mxu)
 from pylabfea_tpu_torch import convert
 from pylabfea_tpu_torch.ops import constitutive as tcon
 from pylabfea_tpu_torch.ops import svc as tsvc
@@ -101,6 +105,55 @@ def test_plain_matches_pallas_kernel_f32(nsv, with_grad):
     else:
         assert gt is None
         assert not np.asarray(gj).any()
+
+
+@pytest.mark.parametrize('nsv', [64, 135])
+def test_plain_decision_matches_pallas_kernel_f32(nsv):
+    """Kernel D's plain version against ``svc_decision_pallas`` (both the
+    matmul expansion), f32, N=300: atol 2e-5 max(1, sum|dc|)."""
+    sv, dc, gamma, rho = _svc(nsv)
+    x = _points(seed=8)
+    f32 = np.float32
+    fj = svc_decision_pallas(jnp.asarray(x, f32), jnp.asarray(sv, f32),
+                             jnp.asarray(dc, f32), gamma, rho, interpret=True)
+    ft = sk.svc_decision(*(torch.tensor(a, dtype=torch.float32)
+                           for a in (x, sv, dc)), gamma, rho)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0,
+                               atol=2e-5 * max(1., np.abs(dc).sum()))
+
+
+@pytest.mark.parametrize('nsv', [64, 135])
+def test_plain_mm_matches_pallas_mxu_kernel_f32(nsv):
+    """Kernel E's plain version against ``svc_f_grad_pallas_mxu``, f32,
+    N=300, under the bounds of the kernel A test."""
+    sv, dc, gamma, rho = _svc(nsv)
+    x = _points(seed=9)
+    f32 = np.float32
+    fj, gj = svc_f_grad_pallas_mxu(jnp.asarray(x, f32), jnp.asarray(sv, f32),
+                                   jnp.asarray(dc, f32), gamma, rho,
+                                   interpret=True)
+    ft, gt = sk.svc_f_grad_mm(*(torch.tensor(a, dtype=torch.float32)
+                                for a in (x, sv, dc)), gamma, rho)
+    tol = 2e-5 * max(1., np.abs(dc).sum())
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=0, atol=tol)
+    gtol = tol * 2. * gamma * (np.abs(x).max() + np.abs(sv).max())
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=0, atol=gtol)
+
+
+@pytest.mark.parametrize('nsv', [64, 135])
+def test_plain_decision_matches_jax_f64(nsv):
+    """Kernel D's and E's plain versions against the JAX SVC module's
+    decision function and gradient, f64, 1e-12."""
+    sv, dc, gamma, rho = _svc(nsv)
+    x = _points(seed=10)
+    p = jsvc.SVCParams(support_vectors=sv, dual_coef=dc, intercept=rho,
+                       gamma=gamma)
+    args = tuple(torch.tensor(a) for a in (x, sv, dc))
+    fj = jsvc.decision_function_jax(p, x, dtype=jnp.float64)
+    _close(sk.svc_decision(*args, gamma, rho), fj, 1e-12)
+    ft, gt = sk.svc_f_grad_mm(*args, gamma, rho)
+    _close(ft, fj, 1e-12)
+    _close(gt, jsvc.decision_gradient_jax(p, x, dtype=jnp.float64), 1e-12)
 
 
 def test_decision_and_gradient_match_jax_f64():
