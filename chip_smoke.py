@@ -9,14 +9,15 @@ used.  Phases, each of which must pass:
 
 1. device: card name and power limit (nvidia-smi), torch/CUDA versions,
    TF32 off;
-2. build: nvcc builds the six kernels from ``pylabfea_tpu_torch/csrc``
+2. build: nvcc builds the seven kernels from ``pylabfea_tpu_torch/csrc``
    (one compiler per source, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with times;
 4. the SVC return maps (512-SV synthetic SVC): the fast ``response_fast``
    (kernel A) on 2^20 states and the reference-faithful
-   ``response_chunked`` (kernels D, E and F) on 2^18 of them in float64
-   and on all of them in float32, each held against the CPU on 64 lanes;
+   ``response_chunked`` (kernels D, E and G; F not at all) on 2^18 of
+   them in float64 and on all of them in float32, each held against the
+   CPU on 64 lanes;
 5. the 2-D path: a 1024 x 1024 Hill-ML load step (the trained SVC of
    ``REF_SOLVE_svc.npz``), one untimed step then two timed warm-started
    steps, which must launch kernels A and B; then one timed step of the
@@ -36,9 +37,10 @@ used.  Phases, each of which must pass:
 9. the REF_SOLVE boundary-value problem (``bench.py`` ``ref_solve_fields``
    protocol: eight gated load steps with the faithful tail) at 8^2, 16^2
    and 32^2 in float32 and at 8^2 in float64, one untimed 8^2 solve and
-   one timed solve each, which must launch kernels D, E and F and land on
-   the converged float64 answers of ``REF_SOLVE.json``; the float64 8^2
-   solve also on the CPU, which must agree.
+   one timed solve each, which must launch kernels D, E and G (and not F;
+   D and G at most ``MAX_DG_LAUNCHES`` times) and land on the converged
+   float64 answers of ``REF_SOLVE.json``; the float64 8^2 solve also on the
+   CPU, which must agree.
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after.  The last two lines are a JSON object with every kernel's
@@ -433,6 +435,81 @@ def check_brent_step(device, N, reps, card):
     return err, ms, pms, bnd
 
 
+def check_yf_root(device, N, mat_of, reps, card, label):
+    """Kernel G against its plain version on the card, both through
+    ``ml_yf_dist`` on N stresses at 0.3-2 sy along random directions
+    (inside, across and outside the locus).  Float64: every finite lane's
+    distance within 1e-6 of the distances' scale (a Brent iterate that
+    flips moves a root by up to xtol), the same lanes finite.  Float32:
+    phase 4's rule, at most 1e-3 of the lanes non-finite and at least 48
+    of 64 sampled lanes within 1e-3 (rounding decides per lane between
+    Brent's root and the fallback).  Then kernel and plain float32 times
+    and the bound, from the evaluations the kernel counted (each nsv x
+    (2F + 7) operations).  Returns (max error of the agreeing lanes, ms,
+    plain ms, bound)."""
+    import torch
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    rng = np.random.default_rng(4)
+    u = rng.normal(size=(N, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sig_np = u * SY * rng.uniform(0.3, 2.0, (N, 1))
+    pick = np.random.default_rng(5).choice(N, 64, replace=False)
+    errs, seen = [], {}
+
+    def kernel(*a, **kw):
+        seen['call'] = a, kw
+        return sk.svc_yf_root(*a, **kw)
+
+    for dtype in (torch.float32, torch.float64):
+        mat = mat_of(dtype)
+        sig = torch.as_tensor(sig_np, dtype=dtype, device=device)
+        peeq = torch.zeros(N, dtype=dtype, device=device)
+        d = con.ml_yf_dist(mat, sig, peeq, root=kernel)
+        dp = con.ml_yf_dist(mat, sig, peeq, root=sk.svc_yf_root_plain)
+        sync(device)
+        fin, fin_k = torch.isfinite(dp), torch.isfinite(d)
+        scale = float(dp[fin].abs().max())
+        diff = torch.where(fin & fin_k, (d - dp).abs(), 0.).cpu().numpy()
+        nbad = int((~fin_k).sum())
+        if dtype == torch.float64:
+            err = float(diff.max())
+            ok = bool((fin == fin_k).all()) and err <= 1e-6 * scale
+            rule = (f'{N - nbad} finite lanes, max|err| {err:.3e} (bound '
+                    f'1e-6*{scale:.1f} = {1e-6 * scale:.3e})')
+        else:
+            fk = fin_k.cpu().numpy()[pick] & fin.cpu().numpy()[pick]
+            agree = fk & (diff[pick] <= 1e-3 * scale)
+            err = float(diff[pick][agree].max()) if agree.any() else np.inf
+            ok = nbad <= 1e-3 * N and int(agree.sum()) >= 48
+            rule = (f'{nbad} non-finite lanes (bound {1e-3 * N:.0f}); '
+                    f'{int(agree.sum())} of 64 sampled lanes within 1e-3*'
+                    f'{scale:.1f} (bound 48), max|err| of those {err:.3e}')
+        log(f'[3 kernel G] svc_yf_root N={N} {label} nsv={mat.sv.shape[0]} '
+            f'{dtype} vs plain, distances of ml_yf_dist: {rule} '
+            f'{"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'svc_yf_root {label} {dtype} disagrees with its plain '
+                 'version')
+        errs.append(err)
+        if dtype == torch.float32:
+            a, kw = seen['call']
+            evals = torch.zeros(N, dtype=torch.int32, device=device)
+            sk.svc_yf_root(*a, **kw, evals=evals)
+            nev = int(evals.sum())
+            ms = timed_ms(lambda: sk.svc_yf_root(*a, **kw), reps)
+            pms = timed_ms(lambda: sk.svc_yf_root_plain(*a, **kw), 1)
+            nsv = mat.sv.shape[0]
+            # su, start, top, sv, dc read and xs, ok written once
+            bnd = bound_ms((8 * N + 7 * nsv + N) * 4 + N,
+                           nev * nsv * (2 * 6 + 7))
+    log(f'[3 kernel G] svc_yf_root N={N} {label} nsv={nsv} f32: kernel '
+        f'{ms:.4f} ms ({nev} evaluations, {nev / N:.1f} per lane), plain '
+        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
+        f'of it)  [{card}]')
+    return max(errs), ms, pms, bnd
+
+
 def phase_return_map(device, N, reps, card):
     import torch
     from pylabfea_tpu_torch import convert
@@ -476,7 +553,8 @@ FAITHFUL_CHECKS = {'float64': dict(nonfinite=1e-4, agree=64, rtol=1e-6),
 
 def phase_faithful_map(device, N, dtype, card):
     """One reference-faithful ``response_chunked`` call on phase 4's
-    states, which must launch kernels D, E and F.  On a few of these
+    states, which must launch kernels D, E and G and not F (the
+    yield-locus distance runs its Brent in G).  On a few of these
     states (a step split far outside the synthetic SVC's band) the
     faithful algorithm itself yields NaN, in the JAX package as here
     (``tests/test_torch_faithful.py``), so the phase bounds their share
@@ -513,7 +591,7 @@ def phase_faithful_map(device, N, dtype, card):
     sync(device)
     dt = time.perf_counter() - t0
     nd, ne = sk.svc_decision.launches, sk.svc_f_grad_mm.launches
-    nf = rootfind.brent_step.launches
+    nf, ng = rootfind.brent_step.launches, sk.svc_yf_root.launches
     bad = torch.zeros(N, dtype=torch.bool, device=device)
     for o in out:
         bad |= ~torch.isfinite(o.reshape(N, -1)).all(-1)
@@ -537,12 +615,12 @@ def phase_faithful_map(device, N, dtype, card):
         errs.append(float(d.max()))
     nbad = int(bad.sum())
     ok = (nbad <= chk['nonfinite'] * N and int(agree.sum()) >= chk['agree']
-          and min(nd, ne, nf) > 0)
+          and min(nd, ne, ng) > 0 and nf == 0)
     log(f'[4 faithful map] response_chunked N={N}, 512-SV synthetic SVC, '
         f'{dtype}: {dt:.3f} s -> {N / dt:,.0f} maps/s; launches per call: '
-        f'svc_decision {nd}, svc_f_grad_mm {ne}, brent_step {nf}, '
-        f'svc_f_grad {sk.svc_f_grad.launches}; plastic lanes '
-        f'{int(plastic.sum())}; non-finite lanes {nbad} (bound '
+        f'svc_decision {nd}, svc_f_grad_mm {ne}, svc_yf_root {ng}, '
+        f'brent_step {nf} (bound 0), svc_f_grad {sk.svc_f_grad.launches}; '
+        f'plastic lanes {int(plastic.sum())}; non-finite lanes {nbad} (bound '
         f'{chk["nonfinite"] * N:.0f}); 64 lanes ({min(8, nbad)} non-finite) '
         f'vs the CPU: {int(agree.sum())} agree (bound {chk["agree"]}; the '
         f'CPU non-finite on {int((~torch.isfinite(ref[1]).all(-1)).sum())}),'
@@ -550,8 +628,8 @@ def phase_faithful_map(device, N, dtype, card):
         f'{", ".join(f"{e:.2e}" for e in errs)} (bound {chk["rtol"]:g} on '
         f'the agreeing lanes) {"ok" if ok else "FAIL"}  [{card}]')
     if not ok:
-        fail(f'faithful return map {dtype}: non-finite share, CPU agreement '
-             'or kernels D/E/F not launched')
+        fail(f'faithful return map {dtype}: non-finite share, CPU agreement, '
+             'kernels D/E/G not launched or kernel F launched')
     return N / dt
 
 
@@ -577,11 +655,12 @@ def run_steps(md, mat, CV, dtype, n_timed, device, counters=()):
 
 
 def counters():
-    """Every kernel wrapper's launch counter: kernels A, B, C, D, E, F."""
+    """Every kernel wrapper's launch counter: kernels A, B, C, D, E, F,
+    G."""
     from pylabfea_tpu_torch.ops import rootfind, stencil, svc_kernels, volume
     return (svc_kernels.svc_f_grad, stencil.k_apply, volume.k_apply3,
             svc_kernels.svc_decision, svc_kernels.svc_f_grad_mm,
-            rootfind.brent_step)
+            rootfind.brent_step, svc_kernels.svc_yf_root)
 
 
 def reset_counts():
@@ -881,6 +960,12 @@ def phase_3d_card_vs_cpu(device, N, card):
             fail(f'card and CPU disagree at {N}^3 {dtype}')
 
 
+#: most launches of kernels D and G in one REF_SOLVE solve (the yield
+#: function and one root finder per yield-locus distance; the eager
+#: marching and Brent loops launched D 537,421 times in a 32^2 f32 solve)
+MAX_DG_LAUNCHES = 10_000
+
+
 def ref_solve(N, dtype, device):
     """``bench.py``'s REF_SOLVE solve on an N x N mesh: eight gated load
     steps with the faithful tail (nsub 4, n_inner 2).  Returns (final
@@ -924,7 +1009,10 @@ def phase_ref_solve(device, cases, card):
         fin = bool(torch.isfinite(st.sig).all()) and np.isfinite(sig).all()
         ok = (fin and par_yy <= bound and par_max <= bound
               and min(launches['svc_decision'], launches['svc_f_grad_mm'],
-                      launches['brent_step']) > 0)
+                      launches['svc_yf_root']) > 0
+              and launches['brent_step'] == 0
+              and launches['svc_decision'] + launches['svc_yf_root']
+              <= MAX_DG_LAUNCHES)
         log(f'[9 REF_SOLVE] {N}x{N} {dtype} solve_uniaxial(nsteps=8, '
             f'n_inner=2, gate, nsub=4, commit_faithful): {dt:.3f} s '
             f'(untimed first solve {untimed:.3f} s; reference pyLabFEA '
@@ -935,8 +1023,9 @@ def phase_ref_solve(device, cases, card):
             f'launches {launches} '
             f'{"ok" if ok else "FAIL"}  [{card}]')
         if not ok:
-            fail(f'REF_SOLVE {N}x{N} {dtype}: parity, finiteness or kernels '
-                 'D/E/F not launched')
+            fail(f'REF_SOLVE {N}x{N} {dtype}: parity, finiteness, kernels '
+                 'D/E/G not launched, kernel F launched or more than '
+                 f'{MAX_DG_LAUNCHES} launches of D and G')
         out[(N, dtype)] = (dt, launches, sig)
     return out
 
@@ -963,6 +1052,7 @@ def main():
         print('chip_smoke: no CUDA device is visible; this smoke run needs '
               'an NVIDIA card', file=sys.stderr)
         return 1
+    from pylabfea_tpu_torch import convert
     device = torch.device('cuda', 0)
     card = phase_device()
     phase_build()
@@ -983,6 +1073,17 @@ def main():
     ee = [check_svc_mm(device, 2 ** 20 + 17, p, 20, card, 'E')
           for p in (trained, synthetic_svc())]
     ef = [check_brent_step(device, FAITHFUL_N, 20, card)]
+
+    def trained_mat(dtype):
+        return convert.material_from_npz(NPZ, dtype=dtype, device=device)[0]
+
+    def synthetic_mat(dtype):
+        return convert.material_from_params(synthetic_svc(), is_svc=True,
+                                            dtype=dtype, device=device)
+
+    eg = [check_yf_root(device, 1024, trained_mat, 20, card, 'trained'),
+          check_yf_root(device, FAITHFUL_N, synthetic_mat, 5, card,
+                        'synthetic')]
     phase_return_map(device, 2 ** 20, 3, card)
     phase_faithful_map(device, FAITHFUL_N, torch.float64, card)
     phase_faithful_map(device, 2 ** 20, torch.float32, card)
@@ -1019,9 +1120,14 @@ def main():
         entry('svc_f_grad_mm', 'svc_fgrad_mm.cu', 'pallas_kernels.py:170',
               ref32['svc_f_grad_mm'], ee),
         # no Pallas kernel: the while-loop body of brent_jax, which XLA
-        # fuses on the TPU
+        # fuses on the TPU; the faithful path runs its Brent in G
         entry('brent_step', 'brent_step.cu', 'rootfind.py:139',
               ref32['brent_step'], ef),
+        # the decision function inside the marching while_loops and
+        # brent_jax of the JAX ml_yf_dist
+        entry('svc_yf_root', 'yf_root.cu',
+              'pallas_kernels.py:72 + pylabfea_tpu/ops/rootfind.py:139',
+              ref32['svc_yf_root'], eg),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

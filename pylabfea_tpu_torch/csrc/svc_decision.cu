@@ -3,95 +3,94 @@
 //   f(x) = sum_s dc_s exp(-gamma max(|x|^2 + |sv_s|^2 - 2 x.sv_s, 0)) + rho
 //
 // Replaces the TPU kernel pylabfea_tpu/ops/pallas_kernels.py
-// svc_decision_pallas (_kernel).  The reference-faithful return map calls it
-// for the yield function and for every bracket-marching and Brent
-// evaluation of the yield-locus distance (hundreds of calls per response).
+// svc_decision_pallas (_kernel).  It serves the yield function yf: three
+// launches per 2-D load step, one per faithful return map `response` and
+// one per substep of its flow rule.  The yield-locus distance, which
+// evaluates the same function at every marching and Brent abscissa, runs in
+// kernel G (yf_root.cu) on the same body (svc_eval.cuh).
 //
-// What bounds it: each point-SV pair costs F multiply-adds of the cross
-// term, three flops of the distance, the gamma product, one exp and one
-// multiply-add of the sum, against F + 1 loads per point: compute-bound.
-// The plain PyTorch version writes the (N, nsv) kernel matrix to device
-// memory; this kernel writes none.
+// What bounds it: per point-SV pair 2F + 7 float32 operations (F FMAs of
+// the cross term, an add and an FMA of the distance, the gamma product, the
+// exponential, an FMA into the sum) against F + 1 values moved per point:
+// compute-bound.  At 2^20 points x 512 SVs the flop bound is 0.152 ms
+// (H100 SXM data sheet at its 700 W limit: 67 TFLOP/s float32); the SFU
+// ceiling beside it, one ex2 per pair at 16 per clock per SM (132 SMs at
+// 1.98 GHz), is 0.129 ms, and expf adds its range reduction to the FP32
+// pipe (see svc_eval.cuh for why float32 keeps expf).  The plain PyTorch version writes the (N, nsv) kernel matrix to
+// device memory; this kernel writes none.
 //
-// Design: one thread per evaluation point, its F features and |x|^2 in
-// registers.  The block stages the support vectors and dual coefficients
-// in chunks of SV_CHUNK in shared memory (every thread then reads the same
-// address: a broadcast) and computes |sv_s|^2 of the staged chunk itself
-// (nsv F multiply-adds per block, well under 1 % of its work), so no
-// caller keeps a per-material cache and no extra launch is needed.  The
-// cross term is a chain of full-precision FMAs (float or double; never
-// TF32: the yield-locus root marching amplifies the decision function's
-// error, see pylabfea_tpu/ops/constitutive.py _rbf_d2).  F is a template
-// parameter (6: the 6-D stress features).  The kernel allocates nothing and
-// launches on the caller's stream.
+// Design: a thread owns P points (P = 4, 2 or 1, chosen at launch so that
+// the grid still fills the card), their features and |x|^2 in registers;
+// the block stages packed SV records in shared memory (svc_eval.cuh) and
+// every record loaded serves P points.  Every thread of a warp reads the
+// same record: a broadcast.  The kernel allocates nothing and launches on
+// the caller's stream.
 #include <cuda_runtime.h>
+
+#include "svc_eval.cuh"
 
 namespace {
 
-constexpr int SV_CHUNK = 256;
+using pylabfea::SVC_NFEAT;
+using pylabfea::SVC_STAGE;
+using pylabfea::SvcRecord;
+
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float exp_t(float v) { return expf(v); }
-__device__ __forceinline__ double exp_t(double v) { return exp(v); }
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-template <typename T, int F>
+template <typename T, int P>
 __global__ void __launch_bounds__(THREADS)
 svc_decision_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                     const T* __restrict__ dc, long long n, int nsv, T gamma,
                     T rho, T* __restrict__ f) {
-  __shared__ T s_sv[SV_CHUNK * F];
-  __shared__ T s_s2[SV_CHUNK];
-  __shared__ T s_dc[SV_CHUNK];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  T xr[F];
-  T x2 = T(0);
+  __shared__ SvcRecord<T> rec[SVC_STAGE];
+  const long long base = (long long)blockIdx.x * (THREADS * P) + threadIdx.x;
+  T xr[P][SVC_NFEAT], x2[P], acc[P];
 #pragma unroll
-  for (int k = 0; k < F; ++k) {
-    xr[k] = live ? x[i * F + k] : T(0);
-    x2 += xr[k] * xr[k];
+  for (int p = 0; p < P; ++p) {
+    const long long i = base + (long long)p * THREADS;
+#pragma unroll
+    for (int k = 0; k < SVC_NFEAT; ++k)
+      xr[p][k] = i < n ? x[i * SVC_NFEAT + k] : T(0);
+    x2[p] = pylabfea::svc_norm2(xr[p]);
+    acc[p] = T(0);
   }
-  T acc = T(0);
-  for (int s0 = 0; s0 < nsv; s0 += SV_CHUNK) {
-    const int m = min(SV_CHUNK, nsv - s0);
+  for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
+    const int m = min(SVC_STAGE, nsv - s0);
     __syncthreads();  // previous chunk fully consumed
-    for (int k = threadIdx.x; k < m * F; k += blockDim.x)
-      s_sv[k] = sv[(long long)s0 * F + k];
-    for (int k = threadIdx.x; k < m; k += blockDim.x) s_dc[k] = dc[s0 + k];
+    pylabfea::svc_stage(rec, sv, dc, s0, m);
     __syncthreads();
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      T q = T(0);
-#pragma unroll
-      for (int j = 0; j < F; ++j) q += s_sv[k * F + j] * s_sv[k * F + j];
-      s_s2[k] = q;
-    }
-    __syncthreads();
-    for (int s = 0; s < m; ++s) {
-      T cross = T(0);
-#pragma unroll
-      for (int k = 0; k < F; ++k)
-        cross = fma_t(xr[k], s_sv[s * F + k], cross);
-      T d2 = x2 + s_s2[s] - T(2) * cross;
-      d2 = d2 > T(0) ? d2 : T(0);
-      acc = fma_t(s_dc[s], exp_t(-gamma * d2), acc);
-    }
+    pylabfea::svc_accumulate<T, P>(rec, m, xr, x2, gamma, acc);
   }
-  if (live) f[i] = acc + rho;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const long long i = base + (long long)p * THREADS;
+    if (i < n) f[i] = acc[p] + rho;
+  }
+}
+
+template <typename T, int P>
+void launch_p(const T* x, const T* sv, const T* dc, long long n, int nsv,
+              T gamma, T rho, T* f, cudaStream_t stream) {
+  const long long per_block = (long long)THREADS * P;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  svc_decision_kernel<T, P><<<blocks, THREADS, 0, stream>>>(x, sv, dc, n, nsv,
+                                                            gamma, rho, f);
 }
 
 template <typename T>
 int launch(const T* x, const T* sv, const T* dc, long long n, int nsv,
            int nfeat, T gamma, T rho, T* f, void* stream) {
-  if (nfeat != 6 || n <= 0 || nsv <= 0) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  svc_decision_kernel<T, 6><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, sv, dc, n, nsv, gamma, rho, f);
+  if (nfeat != SVC_NFEAT || n <= 0 || nsv <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  // P points a thread while the threads still number at least 1024 per SM
+  const long long fill = (long long)pylabfea::sm_count() * 1024;
+  if (n >= 4 * fill)
+    launch_p<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, s);
+  else if (n >= 2 * fill)
+    launch_p<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, s);
+  else
+    launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, s);
   return (int)cudaGetLastError();
 }
 

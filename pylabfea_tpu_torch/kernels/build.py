@@ -7,12 +7,15 @@ are loaded with ``ctypes`` (pointers and the CUDA stream pass as
 launch).  A build runs at first use and is keyed on a hash of its source
 and the flags, so a fresh checkout builds once and later processes reuse
 the libraries from ``pylabfea_tpu_torch/build/`` (listed in
-``.gitignore``).  Nothing here runs at import.
+``.gitignore``); the hash covers the ``csrc/*.cuh`` headers a source
+includes, so a change to a shared header rebuilds every kernel that uses
+it.  Nothing here runs at import.
 """
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,6 +52,11 @@ SIGNATURES = {
     'pylabfea_brent_step_f32': (_L, *(_P,) * 11, ctypes.c_float,
                                 ctypes.c_float, _P),
     'pylabfea_brent_step_f64': (_L, *(_P,) * 11, _D, _D, _P),
+    'pylabfea_yf_root_f32': (*(_P,) * 5, _L, _I, _I, *(ctypes.c_float,) * 3,
+                             _I, _I, _I, ctypes.c_float, ctypes.c_float,
+                             *(_P,) * 4),
+    'pylabfea_yf_root_f64': (*(_P,) * 5, _L, _I, _I, _D, _D, _D, _I, _I, _I,
+                             _D, _D, *(_P,) * 4),
     'pylabfea_kapply2d_f32': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply2d_f64': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply3d_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -86,11 +94,28 @@ def _sources():
     return srcs
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _headers(src, seen=None):
+    """The ``csrc`` headers that ``src`` includes, directly or through
+    another header, in the order first met."""
+    seen = [] if seen is None else seen
+    for name in _INCLUDE.findall(src.read_bytes()):
+        hdr = src.parent / name.decode()
+        if hdr.exists() and hdr not in seen:
+            seen.append(hdr)
+            _headers(hdr, seen)
+    return seen
+
+
 def _key(srcs):
+    """Hash of the sources, every header they include and the flags."""
     h = hashlib.sha256()
     for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
+        for f in (s, *_headers(s)):
+            h.update(f.name.encode())
+            h.update(f.read_bytes())
     h.update(' '.join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 

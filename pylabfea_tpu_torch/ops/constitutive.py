@@ -8,8 +8,9 @@ fast path's fused value + gradient, E for the faithful flow rule's); the
 production cutting-plane return map ``response_fast`` with the exact
 path-secant tangent; and the reference-faithful substepped return map
 ``response`` with the yield-locus distance ``ml_yf_dist`` (bracket marching
-+ Brent), for both kinds.  sdim=3 (principal-space) materials,
-work-hardening and texture SVC features raise ``NotImplementedError``.
++ Brent per lane, kernel G), for both kinds.  sdim=3 (principal-space)
+materials, work-hardening and texture SVC features raise
+``NotImplementedError``.
 """
 import dataclasses
 from dataclasses import dataclass
@@ -18,14 +19,11 @@ import torch
 
 from pylabfea_tpu_torch.config import yf_tolerance
 from pylabfea_tpu_torch.ops import jtensors as jt
-from pylabfea_tpu_torch.ops import rootfind
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 #: scale on the cutting-plane projection's exit tolerance (1.0 = the
 #: reference's yf_tolerance band), as in the JAX module
 PROJ_TOL_SCALE = 1.0
-#: most bracket-marching steps per direction in ``ml_yf_dist``
-MAXMARCH = 400
 #: substeps of a subdividing lane in the faithful ``response``
 MAXIT = 50
 
@@ -198,45 +196,23 @@ def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     return seq - flow_stress(m, peeq), g, hard_modulus(m, peeq)
 
 
-def _march(f_of, x, fac, active_of):
-    """Geometric bracket marching: scale the active lanes' abscissae by
-    ``fac`` until no lane is active or ``MAXMARCH`` steps have run.  The
-    inactive lanes are frozen, so reading the active flag on the host
-    every ``rootfind.check_every(x)`` steps gives the JAX while_loop's
-    result."""
-    f = f_of(x)
-    it, every = 0, rootfind.check_every(x)
-    while it < MAXMARCH:
-        act = active_of(x, f)
-        if it % every == 0 and not bool(act.any()):
-            break
-        x = torch.where(act, x * fac, x)
-        f = f_of(x)
-        it += 1
-    return x
-
-
-def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None):
+def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None,
+               root=sk.svc_yf_root):
     """Distance of stresses to the SVC yield locus along their own loading
     direction (the JAX ``ml_yf_dist``): geometric bracket marching (x0 *=
-    0.98 down, x1 *= 1.02 up) then Brent; lanes with a vanishing stress
-    (``seq < 0.01``), no root or a root beyond 4 sflow take the fallback
-    ``seq - 0.85 sflow``.  Every evaluation is one decision-function pass
-    (kernel D on the card)."""
+    0.98 down, x1 *= 1.02 up) then Brent, per lane in ``root`` (kernel G
+    on the card, one launch and no host read; its plain version on the
+    CPU, which ``root=sk.svc_yf_root_plain`` also runs on the card); lanes
+    with a vanishing stress (``seq < 0.01``), no root or a root beyond 4
+    sflow take the fallback ``seq - 0.85 sflow``."""
     seq = jt.seq_j2_voigt(sig)
     kh = m.khard if khard is None else khard
     sflow = m.sy + peeq * kh
     small = seq < 0.01
     su = sig / torch.where(small, 1., seq)[:, None]
-
-    def f_of(x):
-        return svc_decision(m, _features(m, x[:, None] * su, epl))
-
     start = torch.where(su[:, 0] * su[:, 1] < -1.e-5, 0.5 * sflow, sflow)
-    top = 5. * sflow
-    x0 = _march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01))
-    x1 = _march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < top))
-    xs, ok = rootfind.brent(f_of, x0, x1, xtol=1.e-5)
+    xs, ok = root(su, start, 5. * sflow, m.sv, m.dc, m.gamma, m.rho,
+                  m.scale_seq, m.dev_only, xtol=1.e-5)
     good = ok & (xs < 4. * sflow) & ~small
     return torch.where(good, seq - xs * jt.seq_j2_voigt(su),
                        seq - 0.85 * sflow)

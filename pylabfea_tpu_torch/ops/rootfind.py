@@ -10,7 +10,9 @@ One iteration's update of every lane is ``brent_step``, the wrapper of the
 CUDA kernel ``csrc/brent_step.cu`` (XLA fuses the same loop body on the
 TPU): a CUDA tensor launches the kernel, which updates the state in place,
 or raises; a CPU tensor takes the plain PyTorch version
-``brent_step_plain``.
+``brent_step_plain``.  The yield-locus distance of the faithful return map
+does not come here on the card: kernel G (``svc_kernels.svc_yf_root``)
+runs its marching and Brent per lane in one launch.
 """
 import numpy as np
 import torch
@@ -143,12 +145,13 @@ def brent_step(state, xtol, rtol):
 brent_step.launches = 0
 
 
-def brent(f, xa, xb, xtol=1.e-5, rtol=_RTOL, maxiter=100):
+def brent(f, xa, xb, xtol=1.e-5, rtol=_RTOL, maxiter=100, step=brent_step):
     """Brent zeroin on every lane: ``f`` maps (N,) abscissae to (N,)
     residuals, lane i solves f_i(x) = 0 in [xa_i, xb_i].  Finished lanes
-    freeze while the others iterate, at most ``maxiter`` iterations.
-    Returns (root, converged); a lane without a sign change across its
-    bracket is unconverged with root xb."""
+    freeze while the others iterate, at most ``maxiter`` iterations, each
+    one ``step`` (kernel F on the card; ``brent_step_plain`` keeps it plain
+    PyTorch on any device).  Returns (root, converged); a lane without a
+    sign change across its bracket is unconverged with root xb."""
     fpre = f(xa)
     fcur = f(xb)
     bad = fpre * fcur > 0.
@@ -164,7 +167,7 @@ def brent(f, xa, xb, xtol=1.e-5, rtol=_RTOL, maxiter=100):
     while it < maxiter:
         if it % every == 0 and bool(state['done'].all()):
             break
-        state = brent_step(state, xtol, rtol)
+        state = step(state, xtol, rtol)
         state['fcur'] = torch.where(state['done'], state['fcur'],
                                     f(state['xcur']))
         it += 1

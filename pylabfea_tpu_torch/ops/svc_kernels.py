@@ -1,6 +1,7 @@
 """The SVC kernels: A (fused decision function + feature gradient, exact
-distances), D (decision function alone) and E (decision function +
-gradient, matmul-expansion distances).
+distances), D (decision function alone), E (decision function +
+gradient, matmul-expansion distances) and G (the yield-locus root finder
+of ``constitutive.ml_yf_dist``, on D's body).
 
 Each wrapper launches its CUDA kernel on a CUDA tensor or raises; a CPU
 tensor takes the plain PyTorch version, which follows the JAX package's
@@ -10,14 +11,20 @@ JAX ``_rbf_d2``):
 * ``svc_f_grad`` -> ``csrc/svc_fgrad.cu``, the port of
   ``pallas_kernels.svc_f_grad_pallas`` (the fast return map);
 * ``svc_decision`` -> ``csrc/svc_decision.cu``, the port of
-  ``pallas_kernels.svc_decision_pallas`` (the yield function and the
-  yield-locus distance of the faithful return map);
+  ``pallas_kernels.svc_decision_pallas`` (the yield function);
 * ``svc_f_grad_mm`` -> ``csrc/svc_fgrad_mm.cu``, the port of
-  ``pallas_kernels.svc_f_grad_pallas_mxu`` (the faithful flow rule).
+  ``pallas_kernels.svc_f_grad_pallas_mxu`` (the faithful flow rule);
+* ``svc_yf_root`` -> ``csrc/yf_root.cu``, the marching while_loops and
+  ``rootfind.brent_jax`` of the JAX ``ml_yf_dist`` over
+  ``svc_decision_pallas``, one launch per call (its plain version
+  ``svc_yf_root_plain`` composes them from ``svc_f_grad_plain`` and
+  ``rootfind.brent``).
 """
 import torch
 
 from pylabfea_tpu_torch.kernels import build
+from pylabfea_tpu_torch.ops import jtensors as jt
+from pylabfea_tpu_torch.ops import rootfind
 
 #: the feature counts the kernels are instantiated for (6-D stress features)
 KERNEL_NFEAT = (6,)
@@ -144,7 +151,104 @@ def svc_f_grad_mm(x, sv, dc, gamma: float, rho: float):
     return f, g
 
 
+#: most bracket-marching steps per direction of the yield-locus root find
+MAXMARCH = 400
+#: most Brent iterations of the yield-locus root find
+MAXITER = 100
+
+
+def _march(f_of, x, fac, active_of):
+    """Geometric bracket marching: scale the active lanes' abscissae by
+    ``fac`` until no lane is active or ``MAXMARCH`` steps have run.  The
+    inactive lanes are frozen, so reading the active flag on the host
+    every ``rootfind.check_every(x)`` steps gives the JAX while_loop's
+    result."""
+    f = f_of(x)
+    it, every = 0, rootfind.check_every(x)
+    while it < MAXMARCH:
+        act = active_of(x, f)
+        if it % every == 0 and not bool(act.any()):
+            break
+        x = torch.where(act, x * fac, x)
+        f = f_of(x)
+        it += 1
+    return x
+
+
+def svc_yf_root_plain(su, start, top, sv, dc, gamma: float, rho: float,
+                      scale_seq: float, dev_only: bool, xtol=1.e-5,
+                      rtol=rootfind._RTOL):
+    """Plain PyTorch version of ``svc_yf_root``: the two marching loops and
+    ``rootfind.brent`` (its plain step) over the plain decision function,
+    on whole tensors with a host read of the active flags."""
+    def f_of(x):
+        s = x[:, None] * su
+        if dev_only:
+            s = jt.sig_dev(s)
+        return svc_f_grad_plain(s / scale_seq, sv, dc, gamma, rho,
+                                with_grad=False)[0]
+
+    x0 = _march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01))
+    x1 = _march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < top))
+    return rootfind.brent(f_of, x0, x1, xtol=xtol, rtol=rtol,
+                          maxiter=MAXITER, step=rootfind.brent_step_plain)
+
+
+def svc_yf_root(su, start, top, sv, dc, gamma: float, rho: float,
+                scale_seq: float, dev_only: bool, xtol=1.e-5,
+                rtol=rootfind._RTOL, evals=None):
+    """Kernel G: per lane i the root x of f(x) = decision function of the
+    features of ``x * su[i]`` (deviatoric if ``dev_only``, over
+    ``scale_seq``): march down from ``start`` (x *= 0.98 while f >= 0 and
+    x > 0.01), march up from ``start`` (x *= 1.02 while f < 0 and x <
+    ``top``), each at most ``MAXMARCH`` steps, then Brent on the bracket
+    (at most ``MAXITER`` iterations).  su (N, 6), start and top (N,), sv
+    and dc as ``svc_f_grad``.  Returns (xs (N,), ok (N,) bool): the root
+    where Brent converged, else its last abscissa.  ``evals``, an (N,)
+    int32 tensor on the card, receives each lane's evaluation count."""
+    if not _device_ok('svc_yf_root', su):
+        if evals is not None:
+            raise ValueError('svc_yf_root: evals is counted by the kernel '
+                             'only')
+        return svc_yf_root_plain(su, start, top, sv, dc, gamma, rho,
+                                 scale_seq, dev_only, xtol, rtol)
+    _check('svc_yf_root', su, sv, dc)
+    N = su.shape[0]
+    for name, t in (('start', start), ('top', top)):
+        if t.dtype != su.dtype or t.device != su.device:
+            raise TypeError(f'svc_yf_root: {name} is {t.dtype} on '
+                            f'{t.device}, su is {su.dtype} on {su.device}')
+        if t.shape != (N,) or not t.is_contiguous():
+            raise ValueError(f'svc_yf_root: {name} must be a contiguous '
+                             f'({N},) vector, got {tuple(t.shape)}')
+    if evals is not None and (evals.dtype != torch.int32
+                              or evals.device != su.device
+                              or evals.shape != (N,)
+                              or not evals.is_contiguous()):
+        raise ValueError(f'svc_yf_root: evals must be a contiguous ({N},) '
+                         f'int32 vector on {su.device}')
+    xs = torch.empty(N, dtype=su.dtype, device=su.device)
+    ok = torch.empty(N, dtype=torch.bool, device=su.device)
+    if N == 0:
+        return xs, ok
+    lib = build.load().lib
+    fn = lib.pylabfea_yf_root_f32 if su.dtype == torch.float32 \
+        else lib.pylabfea_yf_root_f64
+    with torch.cuda.device(su.device):
+        stream = torch.cuda.current_stream(su.device).cuda_stream
+        err = fn(su.data_ptr(), start.data_ptr(), top.data_ptr(),
+                 sv.data_ptr(), dc.data_ptr(), N, sv.shape[0], su.shape[1],
+                 float(gamma), float(rho), float(scale_seq), int(dev_only),
+                 MAXMARCH, MAXITER, float(xtol), float(rtol), xs.data_ptr(),
+                 ok.data_ptr(), None if evals is None else evals.data_ptr(),
+                 stream)
+    build.check(err, 'svc_yf_root')
+    svc_yf_root.launches += 1
+    return xs, ok
+
+
 #: kernel launches since the last reset (plain integers; set them to 0)
 svc_f_grad.launches = 0
 svc_decision.launches = 0
 svc_f_grad_mm.launches = 0
+svc_yf_root.launches = 0

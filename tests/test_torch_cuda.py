@@ -5,11 +5,17 @@ the suite's conftest cannot load) run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import fe_kernels as fek
+from pylabfea_tpu_torch.ops import jtensors as jt
 from pylabfea_tpu_torch.ops import rootfind
 from pylabfea_tpu_torch.ops import stencil
 from pylabfea_tpu_torch.ops import svc_kernels as sk
@@ -72,10 +78,13 @@ def test_svc_kernel_matches_plain(cuda, n, nsv, dtype, tol):
 
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
                                        (torch.float64, 1e-12)])
-@pytest.mark.parametrize('n,nsv', [(1, 3), (1000, 300), (4099, 600)])
+@pytest.mark.parametrize('n,nsv', [(1, 3), (1000, 300), (4099, 600),
+                                   (300_017, 135), (600_017, 600)])
 def test_svc_mm_kernels_match_plain(cuda, n, nsv, dtype, tol):
     """Kernels D and E: N off the 256-thread block, nsv beyond one
-    256-SV shared-memory chunk; two launches give the same bits."""
+    shared-memory chunk (512 records in D), D's 2 and 4 points a thread
+    (N of 2 and 4 x 1024 per SM and more); two launches give the same
+    bits."""
     rng = np.random.default_rng(2)
     x, sv = (torch.as_tensor(rng.normal(size=s) * 0.7, dtype=dtype,
                              device=cuda) for s in ((n, 6), (nsv, 6)))
@@ -129,6 +138,110 @@ def test_brent_kernel_root_find_matches_cpu(cuda, dtype):
     assert float((root.cpu() - out['cpu'][0]).abs().max()) <= tol
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _yf_case(kind, n, dtype, device, dev_only=False):
+    """(material, stresses at 20-400 MPa with two zero rows, peeq 0): the
+    trained SVC or the 600-SV synthetic one (beyond one staged chunk)."""
+    if kind == 'trained':
+        mat = convert.material_from_npz(os.path.join(
+            ROOT, 'REF_SOLVE_svc.npz'), dtype=dtype, device=device)[0]
+    else:
+        mat = convert.material_from_params(chip_smoke.synthetic_svc(600),
+                                           is_svc=True,
+                                           dev_only=dev_only, dtype=dtype,
+                                           device=device)
+    rng = np.random.default_rng(4)
+    u = rng.normal(size=(n, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sig = u * rng.uniform(20., 400., (n, 1))
+    sig[:2] = 0.
+    return (mat, torch.as_tensor(sig, dtype=dtype, device=device),
+            torch.zeros(n, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('kind,dev_only', [('trained', False),
+                                           ('synthetic', True)])
+@pytest.mark.parametrize('n', [64, 1024, 2 ** 16])
+def test_yf_root_kernel_matches_plain(cuda, n, kind, dev_only, dtype):
+    """Kernel G through ``ml_yf_dist`` against its plain version: float64
+    distances within 1e-6 of their scale; in float32 every lane agrees
+    within 1e-3 or parts on the Brent-or-fallback branch (rounding decides
+    it), and at least 3/4 agree.  Two launches give the same bits; each
+    lane's evaluation count lies within the marching and Brent limits."""
+    mat, sig, peeq = _yf_case(kind, n, dtype, cuda, dev_only)
+    g0 = sk.svc_yf_root.launches
+    d = con.ml_yf_dist(mat, sig, peeq)
+    again = con.ml_yf_dist(mat, sig, peeq)
+    ref = con.ml_yf_dist(mat, sig, peeq, root=sk.svc_yf_root_plain)
+    torch.cuda.synchronize()
+    assert sk.svc_yf_root.launches == g0 + 2
+    assert torch.equal(d, again)
+    tol = (1e-6 if dtype == torch.float64 else 1e-3) * float(ref.abs().max())
+    agree = (d - ref).abs() <= tol
+    if dtype == torch.float64:
+        assert bool(agree.all())
+    else:
+        fallback = jt.seq_j2_voigt(sig) - 0.85 * mat.sy
+        parts = ((d - fallback).abs() <= tol) | ((ref - fallback).abs() <= tol)
+        assert bool((agree | parts).all())
+        assert int(agree.sum()) >= 0.75 * n
+    su = torch.nn.functional.normalize(sig[2:], dim=-1)
+    start = torch.full((n - 2,), mat.sy, dtype=dtype, device=cuda)
+    evals = torch.zeros(n - 2, dtype=torch.int32, device=cuda)
+    sk.svc_yf_root(su, start, 5. * start, mat.sv, mat.dc, mat.gamma,
+                   mat.rho, mat.scale_seq, mat.dev_only, evals=evals)
+    assert int(evals.min()) >= 1
+    assert int(evals.max()) <= 1 + 2 * sk.MAXMARCH + sk.MAXITER
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_yf_root_kernel_is_bitwise_the_eager_composition(cuda, dtype):
+    """Kernel G gives the bits of the eager composition it replaces: the
+    marching loops and ``rootfind.brent`` (kernel F) over kernel D on the
+    features PyTorch forms on the card.  In float32 the last bit of f
+    decides per lane between Brent's root and the fallback, so the same
+    bits keep the faithful solves where the composition had them."""
+    mat, sig, _ = _yf_case('trained', 1024, dtype, cuda)
+    su = sig[2:] / jt.seq_j2_voigt(sig[2:])[:, None]
+    start = torch.full((1022,), mat.sy, dtype=dtype, device=cuda)
+    start[::3] *= 0.5
+    args = (su, start, 5. * start, mat.sv, mat.dc, mat.gamma, mat.rho,
+            mat.scale_seq, mat.dev_only)
+
+    def f_of(x):
+        return sk.svc_decision((x[:, None] * su) / mat.scale_seq, mat.sv,
+                               mat.dc, mat.gamma, mat.rho)
+
+    x0 = sk._march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01))
+    x1 = sk._march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < 5. * start))
+    ref, ref_ok = rootfind.brent(f_of, x0, x1, maxiter=sk.MAXITER)
+    xs, ok = sk.svc_yf_root(*args)
+    assert torch.equal(ok, ref_ok) and torch.equal(xs, ref)
+
+
+def test_ml_yf_dist_is_one_launch_of_kernel_g(cuda):
+    """One ``ml_yf_dist`` call is one launch of G and none of D or F (its
+    marching and Brent run inside G), with no host read of the device."""
+    mat, sig, peeq = _yf_case('trained', 1024, torch.float32, cuda)
+    counts = [c.launches for c in (sk.svc_yf_root, sk.svc_decision,
+                                   rootfind.brent_step)]
+    con.ml_yf_dist(mat, sig, peeq)              # builds, if not yet built
+    torch.cuda.synchronize()
+    counts[0] += 1
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        con.ml_yf_dist(mat, sig, peeq)
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert [c.launches for c in (sk.svc_yf_root, sk.svc_decision,
+                                 rootfind.brent_step)] \
+        == [counts[0] + 1, counts[1], counts[2]]
+
+
 def _k3(shape, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     C6 = rng.normal(size=(6, 6) + shape)
@@ -179,6 +292,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     st['xcur'] = torch.zeros(10, device=cuda)[::2]
     with pytest.raises(ValueError):                      # not contiguous
         rootfind.brent_step(st, 1e-5, 1e-15)
+    su = torch.zeros(4, 6, device=cuda)
+    svs = (torch.zeros(3, 6, device=cuda), torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError):                      # start not (N,)
+        sk.svc_yf_root(su, torch.zeros(5, device=cuda),
+                       torch.zeros(4, device=cuda), *svs, 1., 0., 1., False)
+    with pytest.raises(TypeError):                       # top float64
+        sk.svc_yf_root(su, torch.zeros(4, device=cuda),
+                       torch.zeros(4, device=cuda, dtype=torch.float64),
+                       *svs, 1., 0., 1., False)
+    with pytest.raises(ValueError):                      # evals not int32
+        sk.svc_yf_root(su, torch.zeros(4, device=cuda),
+                       torch.zeros(4, device=cuda), *svs, 1., 0., 1., False,
+                       evals=torch.zeros(4, device=cuda))
     for fn in (sk.svc_decision, sk.svc_f_grad_mm):
         with pytest.raises(ValueError):
             fn(x, torch.zeros(3, 5, device=cuda), torch.zeros(3, device=cuda),

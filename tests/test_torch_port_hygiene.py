@@ -160,18 +160,41 @@ def test_other_devices_raise_instead_of_falling_back():
         rootfind.brent_step({k: torch.empty(5, **meta)
                              for k in rootfind.STATE}, 1e-5, 1e-15)
     with pytest.raises(TypeError):
+        sk.svc_yf_root(torch.empty(7, 6, **meta), torch.empty(7, **meta),
+                       torch.empty(7, **meta), torch.empty(5, 6, **meta),
+                       torch.empty(5, **meta), 2.5, 0.1, 150., False)
+    with pytest.raises(TypeError):
         volume.k_apply3(torch.empty(36, 2, 2, 2, **meta),
                         *(torch.empty(3, 3, 3, **meta) for _ in range(3)),
                         1., 1., 1.)
 
 
-def test_build_key_tracks_sources_and_flags():
+def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
     srcs = build._sources()
     stems = ('svc_fgrad', 'kapply2d', 'kapply3d', 'svc_decision',
-             'svc_fgrad_mm', 'brent_step')
+             'svc_fgrad_mm', 'brent_step', 'yf_root')
     assert {s.name for s in srcs} == {f'{k}.cu' for k in stems}
     assert build._key(srcs) == build._key(list(srcs))
     assert len({build._library(s) for s in srcs}) == len(srcs)
     assert 'arch=compute_90a,code=sm_90a' in build.NVCC_FLAGS
     assert set(build.SIGNATURES) == {
         f'pylabfea_{k}_{t}' for k in stems for t in ('f32', 'f64')}
+    # the shared headers are part of the key of every source that
+    # includes them, and of no other
+    uses = {s.stem: {h.name for h in build._headers(s)} for s in srcs}
+    assert uses['svc_decision'] == {'svc_eval.cuh'}
+    assert uses['brent_step'] == {'brent_body.cuh'}
+    assert uses['yf_root'] == {'svc_eval.cuh', 'brent_body.cuh'}
+    for s in srcs:
+        (tmp_path / s.name).write_bytes(s.read_bytes())
+    for h in build.CSRC_DIR.glob('*.cuh'):
+        (tmp_path / h.name).write_bytes(h.read_bytes())
+    monkeypatch.setattr(build, 'CSRC_DIR', tmp_path)
+    copies = build._sources()
+    before = {s.stem: build._key([s]) for s in copies}
+    assert before == {s.stem: build._key([s]) for s in srcs}
+    with open(tmp_path / 'svc_eval.cuh', 'a') as fh:
+        fh.write('// edited\n')
+    after = {s.stem: build._key([s]) for s in copies}
+    assert {k for k in after if after[k] != before[k]} \
+        == {'svc_decision', 'yf_root'}
