@@ -64,6 +64,8 @@ FAITHFUL_N = 2 ** 18
 SY = 150.
 #: J2 + linear hardening of the 3-D path (bench.py fe3d_fields), MPa
 E3, KHARD3 = 200.e3, 500.
+#: shapes up to this many points also get a device time from a CUDA graph
+SMALL_N = 4096
 #: H100 SXM data sheet: HBM3 bytes/s and float32 FLOP/s outside the tensor
 #: cores, at the full 700 W power limit
 HBM_BPS, F32_FLOPS = 3.35e12, 67.e12
@@ -92,6 +94,24 @@ def timed_ms(fn, reps, warm=1):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean device milliseconds of ``fn`` a call: ``reps`` calls captured
+    in one CUDA graph and replayed, so that no host work lies between the
+    launches (at small shapes ``timed_ms`` measures the host's launch
+    path)."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                            # warm on the capturing stream
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return timed_ms(graph.replay, 3) / reps
 
 
 def bound_ms(nbytes, flops):
@@ -232,17 +252,20 @@ def check_kapply3(device, shape, dtype, rtol, reps, card):
     NX, NY, NZ = shape
     lx, ly, lz = 1. / NX, 1.3 / NY, 0.7 / NZ
     out = volume.k_apply3(Cp, *u, lx, ly, lz)
+    again = volume.k_apply3(Cp, *u, lx, ly, lz)
     ref = volume.k_apply3_plain(Cp, *u, lx, ly, lz)
     sync(device)
     err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
     scale = max(float(r.abs().max()) for r in ref)
-    ok = err <= rtol * scale
+    same = all(torch.equal(o, a) for o, a in zip(out, again))
+    ok = err <= rtol * scale and same
     name = 'x'.join(map(str, shape))
     log(f'[3 kernel C] k_apply3 {name} {dtype}: max|err| {err:.3e} (bound '
-        f'{rtol:g}*{scale:.3e} = {rtol * scale:.3e}) '
-        f'{"ok" if ok else "FAIL"}')
+        f'{rtol:g}*{scale:.3e} = {rtol * scale:.3e}); a second launch '
+        f'gives the same bits {same} {"ok" if ok else "FAIL"}')
     if not ok:
-        fail(f'k_apply3 {name} {dtype} disagrees with its plain version')
+        fail(f'k_apply3 {name} {dtype} disagrees with its plain version or '
+             'with itself')
     if not reps:
         return err, None, None, None
     ms = timed_ms(lambda: volume.k_apply3(Cp, *u, lx, ly, lz), reps)
@@ -306,7 +329,13 @@ def check_svc(device, N, params, reps, card):
                    N * nsv * (5 * F + 4))
     log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} f32 with_grad: '
         f'kernel {ms:.4f} ms ({gexp:.1f} G point-SV pairs/s), plain '
-        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})  [{card}]')
+        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
+        f'of it)  [{card}]')
+    if N <= SMALL_N:
+        dms = graph_ms(lambda: sk.svc_f_grad(x, sv, dc, gamma, rho), reps)
+        log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} f32 with_grad: '
+            f'device {dms:.4f} ms a launch in a CUDA graph ({bnd[0] / dms:.0%}'
+            f' of the bound)  [{card}]')
     return max(errs), ms, pms, bnd
 
 
@@ -373,6 +402,11 @@ def check_svc_mm(device, N, params, reps, card, which):
         f'ms ({N * nsv / (ms * 1e-3) / 1e9:.1f} G point-SV pairs/s), plain '
         f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
         f'of it)  [{card}]')
+    if N <= SMALL_N:
+        dms = graph_ms(lambda: kern(x, sv, dc), reps)
+        log(f'[3 kernel {which}] {name} N={N} nsv={nsv} f32: device '
+            f'{dms:.4f} ms a launch in a CUDA graph ({bnd[0] / dms:.0%} of '
+            f'the bound)  [{card}]')
     return max(errs), ms, pms, bnd
 
 
@@ -1058,20 +1092,29 @@ def main():
     phase_build()
     eb = [check_kapply(device, 1024, 1024, 20, card),
           check_kapply(device, 130, 67, 20, card)]
+    # 128^3 (the 3-D path's fine level), grids that no 7 x 31 node tile of
+    # kernel C divides, and float64
     ec = [check_kapply3(device, (128, 128, 128), torch.float32, 3e-6, 20,
                         card),
           check_kapply3(device, (40, 24, 72), torch.float32, 3e-6, 0, card),
-          check_kapply3(device, (16, 16, 16), torch.float64, 1e-12, 0, card)]
+          check_kapply3(device, (67, 29, 93), torch.float32, 3e-6, 0, card),
+          check_kapply3(device, (16, 16, 16), torch.float64, 1e-12, 0, card),
+          check_kapply3(device, (17, 9, 33), torch.float64, 1e-12, 0, card)]
     trained = dict(np.load(NPZ))
     trained = dict(sv=trained['support_vectors'], dc=trained['dual_coef'],
                    gamma=float(trained['gamma']),
                    rho=float(trained['intercept']))
+    # A and E also at 1024 points x 135 SVs: the shape of their launches
+    # in the REF_SOLVE 32^2 solve (the fast phase's Newton trips, the
+    # faithful flow rule)
     ea = [check_svc(device, 2 ** 20 + 17, trained, 20, card),
-          check_svc(device, 2 ** 20 + 17, synthetic_svc(), 10, card)]
+          check_svc(device, 2 ** 20 + 17, synthetic_svc(), 10, card),
+          check_svc(device, 1024, trained, 200, card)]
     ed = [check_svc_mm(device, 2 ** 20 + 17, p, 20, card, 'D')
           for p in (trained, synthetic_svc())]
     ee = [check_svc_mm(device, 2 ** 20 + 17, p, 20, card, 'E')
           for p in (trained, synthetic_svc())]
+    ee.append(check_svc_mm(device, 1024, trained, 200, card, 'E'))
     ef = [check_brent_step(device, FAITHFUL_N, 20, card)]
 
     def trained_mat(dtype):

@@ -20,32 +20,49 @@
 // over the bits k of q of s_k(a) = +-1), the displacement gradient of mode
 // p is G(c, d) = g_d H_c[p | bit(d)] for every d with bit(d) not in p.
 // B_p^T sigma_p gathers the same way into T_c[q], and the corner forces are
-// the transposed transform of T_c.  That is 138 tangent multiply-adds per
-// element instead of the 8-point loop's 8 x 36.  The scratch pass costs
-// 2 x 24 values per element of extra traffic (about 2x the single-pass
-// bound); fusing it away is later work.
+// jacw times the transposed transform of T_c.  That is 138 tangent
+// multiply-adds per element instead of the 8-point loop's 8 x 36.  Every
+// node sums its <= 8 elements' corner forces in corner order 0..7, the
+// order of the plain version's scatter.
 //
-// What bounds it: memory.  The element pass reads the 36 tangent volumes
-// once (302 MB in f32 at 128^3) and does about 612 flops per element
-// (4 per byte read), far below the card's ~20 f32 flops per byte of memory
-// bandwidth.
+// What bounds it: memory.  The 36 tangent volumes are read once (302 MB
+// in f32 at 128^3) for about 612 flops per element (4 per byte read), far
+// below the card's ~20 f32 flops per byte of memory bandwidth.
 //
-// Design: element-centric, two passes, no atomics.  sigma is per element
-// and shared by its 8 nodes, so the node-centric gather of the 2-D kernel
-// would repeat the mode work 8 times.  Pass 1 runs one thread per element
-// (ez fastest, so the Cp reads coalesce) and writes the element's 24 dof
-// forces to a (24, NX, NY, NZ) scratch that the wrapper allocates.  Pass 2
-// runs one thread per node and sums the <= 8 adjacent elements' entries in
-// corner order 0..7, the order of the plain version's scatter.  The
-// summation order is fixed, so every run gives the same bits.  The TPU
-// kernel's carry of the +x corner contributions across sequential grid
-// steps has no counterpart: CUDA blocks run in no order.  Both launches go
-// on the caller's stream; nothing is allocated here.
+// Design: one launch, no scratch in device memory, no atomics.  A block
+// owns a tile of TY x TZ = 7 x 31 nodes in y-z and a chunk of x_chunk node
+// layers along x, and marches through the chunk one x layer at a time
+// (the loop takes the place of the TPU kernel's sequential grid axis,
+// whose +x corner carry it keeps in shared memory).  Per layer ex, each of
+// its 256 threads owns one element of the EY x EZ = 8 x 32 slab that
+// touches the tile (ez fastest): it takes the element's 36 tangents from
+// shared memory and its 24 corner values from registers, computes its 24
+// corner forces and writes corners 0..3 (dx = 0) to B and 4..7 to
+// A[ex & 1]; after a barrier every node of layer ex sums corners 0..3
+// from B and 4..7 from A[(ex - 1) & 1] (the previous layer's), in corner
+// order, while the next layer's corner values load into registers.  While
+// a layer computes, cp.async copies the next layer's tangents (4 bytes a
+// copy: the rows start anywhere) into shared memory.  The slab's edge
+// elements are computed by both neighbouring tiles (8 x 32 elements for
+// 7 x 31 nodes), the layer before a chunk by both neighbouring chunks.
+// Each force is rounded (jacw * T) before the node sum, so the result has
+// the bits of the two-pass kernel that wrote the forces to a (24, NX, NY,
+// NZ) scratch and summed them in a second launch, on every grid and
+// tiling, and every launch gives the same bits.  In float32 the launch
+// bounds keep a thread at <= 128 registers, so two blocks (16 warps) share
+// an SM; the tangent loads are what the time waits on.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+// element slab of a block's x layer (one element a thread, ez fastest),
+// and the node tile it completes
+constexpr int EY = 8, EZ = 32, NE = EY * EZ;
+constexpr int TY = EY - 1, TZ = EZ - 1;
+// shared values: Cs (36 x NE), B (12 x NE), A[2] (2 x 12 x NE)
+constexpr int SMEM_VALUES = 72 * NE;
+static_assert(NE == THREADS && THREADS % EZ == 0, "slab layout");
 
 template <typename T>
 struct Consts {
@@ -62,31 +79,68 @@ __host__ __device__ constexpr int voigt(int c, int d) {
   return c == d ? c : 6 - c - d;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-kapply3d_elem(const T* __restrict__ Cp, const T* __restrict__ u0,
-              const T* __restrict__ u1, const T* __restrict__ u2,
-              T* __restrict__ S, int NX, int NY, int NZ, Consts<T> k) {
-  const long long nel = (long long)NX * NY * NZ;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nel) return;
-  const int ez = (int)(e % NZ);
-  const long long exy = e / NZ;
-  const int ey = (int)(exy % NY);
-  const int ex = (int)(exy / NY);
-  const long long nnY = NY + 1, nnZ = NZ + 1;
-  const T* u[3] = {u0, u1, u2};
+// a product rounded on its own, never contracted into a later sum
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
 
-  // corner values, then their Walsh-Hadamard transform in place
-  T H[3][8];
+// asynchronous copy of one value to shared memory (cp.async through L1),
+// the commit of this thread's copies as a group, and the wait for all
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The 8 corner values of element (ex, ey, ez) (node nd0 = its corner 0),
+// three components each, from device memory.
+template <typename T>
+__device__ __forceinline__ void corner_values(T (&H)[3][8],
+                                              const T* __restrict__ u0,
+                                              const T* __restrict__ u1,
+                                              const T* __restrict__ u2,
+                                              long long nd0, long long sx,
+                                              int sy) {
 #pragma unroll
   for (int a = 0; a < 8; ++a) {
-    const long long nd =
-        ((long long)(ex + (a >> 2)) * nnY + ey + ((a >> 1) & 1)) * nnZ +
-        ez + (a & 1);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) H[c][a] = u[c][nd];
+    const long long nd = nd0 + (a >> 2) * sx + ((a >> 1) & 1) * sy + (a & 1);
+    H[0][a] = u0[nd];
+    H[1][a] = u1[nd];
+    H[2][a] = u2[nd];
   }
+}
+
+// Start copying the 36 tangents of this thread's element e into its
+// column of Cs.
+template <typename T>
+__device__ __forceinline__ void stage_tangents(T* Cs,
+                                               const T* __restrict__ Cp,
+                                               long long e, long long nel) {
+  const T* src = Cp + e;
+#pragma unroll
+  for (int i = 0; i < 36; ++i, src += nel)
+    copy_async(Cs + i * NE + threadIdx.x, src);
+}
+
+// The 24 corner forces of one element from its tangents C and corner
+// values H (transformed in place), rounded, to B (corners 0..3) and Ahi
+// (corners 4..7) at slab index threadIdx.x.
+template <typename T>
+__device__ __forceinline__ void element_forces(const T (&C)[36],
+                                               T (&H)[3][8], T* B, T* Ahi,
+                                               Consts<T> k) {
+  // Walsh-Hadamard transform of the corner values
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
 #pragma unroll
@@ -101,10 +155,6 @@ kapply3d_elem(const T* __restrict__ Cp, const T* __restrict__ u0,
       }
     }
   }
-
-  T C[36];
-#pragma unroll
-  for (int i = 0; i < 36; ++i) C[i] = Cp[i * nel + e];
 
   T Tq[3][8];
 #pragma unroll
@@ -170,45 +220,106 @@ kapply3d_elem(const T* __restrict__ Cp, const T* __restrict__ u0,
       }
     }
 #pragma unroll
-    for (int a = 0; a < 8; ++a) S[(3 * a + c) * nel + e] = k.jacw * Tq[c][a];
+    for (int a = 0; a < 4; ++a) {
+      B[(3 * a + c) * NE + threadIdx.x] = mul_rn(k.jacw, Tq[c][a]);
+      Ahi[(3 * a + c) * NE + threadIdx.x] = mul_rn(k.jacw, Tq[c][a + 4]);
+    }
   }
 }
 
+
+// float32: two blocks an SM (2 x 72 KB of shared memory, <= 128
+// registers); float64 takes 144 KB, one block
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-kapply3d_node(const T* __restrict__ S, T* __restrict__ o0,
-              T* __restrict__ o1, T* __restrict__ o2, int NX, int NY,
-              int NZ) {
-  const int nnY = NY + 1, nnZ = NZ + 1;
-  const long long nn = (long long)(NX + 1) * nnY * nnZ;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nn) return;
-  const int K = (int)(idx % nnZ);
-  const long long ij = idx / nnZ;
-  const int J = (int)(ij % nnY);
-  const int I = (int)(ij / nnY);
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
+kapply3d_kernel(const T* __restrict__ Cp, const T* __restrict__ u0,
+                const T* __restrict__ u1, const T* __restrict__ u2,
+                T* __restrict__ o0, T* __restrict__ o1, T* __restrict__ o2,
+                int NX, int NY, int NZ, int x_chunk, Consts<T> k) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Cs = reinterpret_cast<T*>(smem);
+  T* B = Cs + 36 * NE;
+  T* A = B + 12 * NE;          // A[s] = A + s * 12 * NE
+  const int K0 = blockIdx.x * TZ, J0 = blockIdx.y * TY;
+  const int X0 = blockIdx.z * x_chunk;
+  const int X1 = min(X0 + x_chunk, NX + 1);   // node layers [X0, X1)
+  const int XE = min(X1, NX);                 // element layers < XE
   const long long nel = (long long)NX * NY * NZ;
-  T acc[3] = {T(0), T(0), T(0)};
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int ex = I - (a >> 2), ey = J - ((a >> 1) & 1), ez = K - (a & 1);
-    if (ex < 0 || ex >= NX || ey < 0 || ey >= NY || ez < 0 || ez >= NZ)
-      continue;
-    const long long e = ((long long)ex * NY + ey) * NZ + ez;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) acc[c] += S[(3 * a + c) * nel + e];
+  const long long lay = (long long)NY * NZ;   // elements a layer
+  const int ly = threadIdx.x / EZ, lz = threadIdx.x % EZ;
+  // this thread's element (ex, ey, ez) of every layer, and its node
+  // (I, J, K) of every node layer I
+  const int ey = J0 - 1 + ly, ez = K0 - 1 + lz;
+  const bool elem = ey >= 0 && ey < NY && ez >= 0 && ez < NZ;
+  const long long e0 = (long long)ey * NZ + ez;   // + ex * lay
+  const long long sx = (long long)(NY + 1) * (NZ + 1);   // nodes a layer
+  const int sy = NZ + 1;
+  const long long n0 = (long long)ey * sy + ez;   // + ex * sx
+  const int J = J0 + ly, K = K0 + lz;
+  const bool node = ly < TY && lz < TZ && J <= NY && K <= NZ;
+
+  // prologue: the tangents and corner values of layer X0 - 1
+  T H[3][8];
+  if (X0 >= 1 && elem) {
+    stage_tangents(Cs, Cp, (X0 - 1) * lay + e0, nel);
+    corner_values(H, u0, u1, u2, (X0 - 1) * sx + n0, sx, sy);
   }
-  o0[idx] = acc[0];
-  o1[idx] = acc[1];
-  o2[idx] = acc[2];
+  commit_async();
+  wait_async();
+  __syncthreads();
+  for (int ex = X0 - 1; ex < X1; ++ex) {
+    // element layer ex (the layer before the chunk feeds its corners 4..7
+    // to the chunk's first node layer): its tangents into registers
+    const bool live = elem && ex >= 0 && ex < NX;
+    T C[36];
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < 36; ++i) C[i] = Cs[i * NE + threadIdx.x];
+    }
+    __syncthreads();
+    // start copying layer ex + 1's tangents while this layer computes
+    if (ex + 1 < XE && elem)
+      stage_tangents(Cs, Cp, (ex + 1) * lay + e0, nel);
+    commit_async();
+    if (live) element_forces(C, H, B, A + (ex & 1) * 12 * NE, k);
+    __syncthreads();
+    // the next layer's corner values, in flight during the node sums
+    if (ex + 1 >= 0 && ex + 1 < XE && elem)
+      corner_values(H, u0, u1, u2, (ex + 1) * sx + n0, sx, sy);
+    // node layer I = ex: corners 0..3 from element layer ex (B), 4..7 from
+    // layer ex - 1 (A[(ex - 1) & 1]), in corner order, absent ones skipped
+    const int I = ex;
+    if (I >= X0 && node) {
+      const T* Alo = A + ((ex - 1) & 1) * 12 * NE;
+      T acc[3] = {T(0), T(0), T(0)};
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int dx = a >> 2, dy = (a >> 1) & 1, dz = a & 1;
+        if (I - dx < 0 || I - dx >= NX || J - dy < 0 || J - dy >= NY ||
+            K - dz < 0 || K - dz >= NZ)
+          continue;
+        const T* src = dx ? Alo : B;
+        const int le = (ly + 1 - dy) * EZ + lz + 1 - dz;
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          acc[c] += src[(3 * (a & 3) + c) * NE + le];
+      }
+      const long long nd = I * sx + (long long)J * sy + K;
+      o0[nd] = acc[0];
+      o1[nd] = acc[1];
+      o2[nd] = acc[2];
+    }
+    wait_async();
+    __syncthreads();
+  }
 }
 
 template <typename T>
-int launch(const T* Cp, const T* u0, const T* u1, const T* u2, T* S, T* o0,
-           T* o1, T* o2, int NX, int NY, int NZ, double lx, double ly,
-           double lz, void* stream) {
+int launch(const T* Cp, const T* u0, const T* u1, const T* u2, T* o0, T* o1,
+           T* o2, int NX, int NY, int NZ, double lx, double ly, double lz,
+           int x_chunk, void* stream) {
   if (NX <= 0 || NY <= 0 || NZ <= 0 || !(lx > 0.) || !(ly > 0.) ||
-      !(lz > 0.))
+      !(lz > 0.) || x_chunk < 0)
     return (int)cudaErrorInvalidValue;
   Consts<T> k;
   const double L[3] = {lx, ly, lz};
@@ -223,36 +334,53 @@ int launch(const T* Cp, const T* u0, const T* u1, const T* u2, T* S, T* o0,
     }
   }
   k.jacw = (T)(lx * ly * lz / 8.);
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long nel = (long long)NX * NY * NZ;
-  const long long nn = (long long)(NX + 1) * (NY + 1) * (NZ + 1);
-  kapply3d_elem<T><<<(unsigned)((nel + THREADS - 1) / THREADS), THREADS, 0,
-                     s>>>(Cp, u0, u1, u2, S, NX, NY, NZ, k);
-  int err = (int)cudaGetLastError();
+
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tz = (NZ + TZ) / TZ, ty = (NY + TY) / TY;   // ceil((N+1)/T)
+  if (tz > 2147483647LL || ty > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (x_chunk == 0) {
+    // at least 8 chunks (each recomputes one element layer) and two
+    // blocks per SM
+    long long chunks = (2LL * sms + tz * ty - 1) / (tz * ty);
+    chunks = chunks < 8 ? 8 : chunks;
+    chunks = chunks > NX + 1 ? NX + 1 : chunks;
+    x_chunk = (int)((NX + chunks) / chunks);                  // ceil
+  }
+  const long long nxc = (NX + x_chunk) / x_chunk;             // ceil
+  if (nxc > 65535) return (int)cudaErrorInvalidValue;
+
+  const size_t smem = sizeof(T) * SMEM_VALUES;
+  int err = (int)cudaFuncSetAttribute(
+      kapply3d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != 0) return err;
-  kapply3d_node<T><<<(unsigned)((nn + THREADS - 1) / THREADS), THREADS, 0,
-                     s>>>(S, o0, o1, o2, NX, NY, NZ);
+  const dim3 grid((unsigned)tz, (unsigned)ty, (unsigned)nxc);
+  kapply3d_kernel<T><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      Cp, u0, u1, u2, o0, o1, o2, NX, NY, NZ, x_chunk, k);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// x_chunk: node layers along x per block, 0 for the launch's own choice
 extern "C" int pylabfea_kapply3d_f32(const float* Cp, const float* u0,
                                      const float* u1, const float* u2,
-                                     float* scratch, float* o0, float* o1,
-                                     float* o2, int NX, int NY, int NZ,
-                                     double lx, double ly, double lz,
-                                     void* stream) {
-  return launch<float>(Cp, u0, u1, u2, scratch, o0, o1, o2, NX, NY, NZ, lx,
-                       ly, lz, stream);
+                                     float* o0, float* o1, float* o2, int NX,
+                                     int NY, int NZ, double lx, double ly,
+                                     double lz, int x_chunk, void* stream) {
+  return launch<float>(Cp, u0, u1, u2, o0, o1, o2, NX, NY, NZ, lx, ly, lz,
+                       x_chunk, stream);
 }
 
 extern "C" int pylabfea_kapply3d_f64(const double* Cp, const double* u0,
                                      const double* u1, const double* u2,
-                                     double* scratch, double* o0, double* o1,
-                                     double* o2, int NX, int NY, int NZ,
-                                     double lx, double ly, double lz,
+                                     double* o0, double* o1, double* o2,
+                                     int NX, int NY, int NZ, double lx,
+                                     double ly, double lz, int x_chunk,
                                      void* stream) {
-  return launch<double>(Cp, u0, u1, u2, scratch, o0, o1, o2, NX, NY, NZ, lx,
-                        ly, lz, stream);
+  return launch<double>(Cp, u0, u1, u2, o0, o1, o2, NX, NY, NZ, lx, ly, lz,
+                        x_chunk, stream);
 }

@@ -59,10 +59,8 @@ SIGNATURES = {
                              _D, _D, *(_P,) * 4),
     'pylabfea_kapply2d_f32': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply2d_f64': (_P, _P, _P, _P, _P, _I, _I, _P),
-    'pylabfea_kapply3d_f32': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _D, _D, _D, _P),
-    'pylabfea_kapply3d_f64': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _D, _D, _D, _P),
+    'pylabfea_kapply3d_f32': (*(_P,) * 7, _I, _I, _I, _D, _D, _D, _I, _P),
+    'pylabfea_kapply3d_f64': (*(_P,) * 7, _I, _I, _I, _D, _D, _D, _I, _P),
 }
 
 

@@ -131,16 +131,16 @@ def k_apply3(Cp, u0, u1, u2, lx, ly, lz):
     if Cp.device.type == 'cpu':
         return k_apply3_plain(Cp, u0, u1, u2, lx, ly, lz)
     NX, NY, NZ = Cp.shape[1:]
-    scratch = torch.empty((24, NX, NY, NZ), dtype=Cp.dtype, device=Cp.device)
     out = tuple(torch.empty_like(u0) for _ in range(3))
     lib = build.load().lib
     fn = lib.pylabfea_kapply3d_f32 if Cp.dtype == torch.float32 \
         else lib.pylabfea_kapply3d_f64
     with torch.cuda.device(Cp.device):
         stream = torch.cuda.current_stream(Cp.device).cuda_stream
+        # x_chunk 0: the kernel picks the node layers a block marches over
         err = fn(Cp.data_ptr(), u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-                 scratch.data_ptr(), *(o.data_ptr() for o in out), NX, NY,
-                 NZ, float(lx), float(ly), float(lz), stream)
+                 *(o.data_ptr() for o in out), NX, NY, NZ, float(lx),
+                 float(ly), float(lz), 0, stream)
     build.check(err, 'k_apply3')
     k_apply3.launches += 1
     return out

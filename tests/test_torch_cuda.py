@@ -76,6 +76,42 @@ def test_svc_kernel_matches_plain(cuda, n, nsv, dtype, tol):
     assert float((g.double() - gr).abs().max()) <= gbound
 
 
+#: kernel A's points at its launch boundaries: one thread a point up to 2
+#: x 1024 a SM, two up to 4 x, four beyond; (multiple of sm_count() * 1024,
+#: offset), resolved on the card
+A_POINTS = [(0, 1), (0, 255), (0, 257), (1, -1), (1, 1), (2, -1), (2, 1),
+            (4, -1), (4, 1)]
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nsv', [135, 600])
+@pytest.mark.parametrize('fill,off', A_POINTS)
+def test_svc_kernel_points_per_thread_match_plain(cuda, fill, off, nsv,
+                                                  dtype, tol):
+    """Kernel A at N on both sides of its 1, 2 and 4 points-a-thread
+    launches and with more SVs than one staged chunk (512), with and
+    without the gradient; two launches give the same bits."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = fill * sms * 1024 + off
+    rng = np.random.default_rng(3)
+    x, sv = (torch.as_tensor(rng.normal(size=s) * 0.7, dtype=dtype,
+                             device=cuda) for s in ((n, 6), (nsv, 6)))
+    dc = torch.as_tensor(rng.uniform(-1., 1., nsv), dtype=dtype, device=cuda)
+    f, g = sk.svc_f_grad(x, sv, dc, 2.5, 0.3)
+    f2, g2 = sk.svc_f_grad(x, sv, dc, 2.5, 0.3)
+    f0, g0 = sk.svc_f_grad(x, sv, dc, 2.5, 0.3, with_grad=False)
+    torch.cuda.synchronize()
+    assert g0 is None and torch.equal(f, f2) and torch.equal(g, g2)
+    fr, gr = sk.svc_f_grad_plain(x.double(), sv.double(), dc.double(), 2.5,
+                                 0.3)
+    bound = tol * max(1., float(dc.abs().sum()))
+    assert float((f.double() - fr).abs().max()) <= bound
+    assert float((f0.double() - fr).abs().max()) <= bound
+    gbound = bound * 2. * 2.5 * float(x.abs().max() + sv.abs().max())
+    assert float((g.double() - gr).abs().max()) <= gbound
+
+
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize('n,nsv', [(1, 3), (1000, 300), (4099, 600),
@@ -255,7 +291,8 @@ def _k3(shape, dtype, device, seed=0):
 
 @pytest.mark.parametrize('dtype,rtol', [(torch.float32, 3e-6),
                                         (torch.float64, 1e-12)])
-@pytest.mark.parametrize('shape', [(1, 1, 1), (40, 24, 72)])
+@pytest.mark.parametrize('shape', [(1, 1, 1), (40, 24, 72), (17, 9, 33),
+                                   (129, 3, 5)])
 def test_k_apply3_kernel_matches_plain(cuda, shape, dtype, rtol):
     args = (*_k3(shape, dtype, cuda), 0.5, 0.25, 0.125)
     n0 = volume.k_apply3.launches
@@ -266,6 +303,29 @@ def test_k_apply3_kernel_matches_plain(cuda, shape, dtype, rtol):
     for o, a, r in zip(out, again, volume.k_apply3_plain(*args)):
         assert torch.equal(o, a)        # fixed summation order
         assert float((o - r).abs().max()) <= rtol * float(r.abs().max())
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('shape', [(17, 9, 33), (40, 24, 72)])
+def test_k_apply3_bits_do_not_depend_on_the_x_chunk(cuda, shape, dtype):
+    """Kernel C sums every node in corner order from rounded element
+    forces, whichever block computes them: any number of node layers a
+    block marches over gives the bits of the launch's own choice."""
+    from pylabfea_tpu_torch.kernels import build
+    Cp, u0, u1, u2 = _k3(shape, dtype, cuda)
+    ref = volume.k_apply3(Cp, u0, u1, u2, 0.5, 0.25, 0.125)
+    lib = build.load().lib
+    fn = lib.pylabfea_kapply3d_f32 if dtype == torch.float32 \
+        else lib.pylabfea_kapply3d_f64
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for x_chunk in (1, 2, 7, shape[0] + 1):
+        out = [torch.full_like(u0, float('nan')) for _ in range(3)]
+        build.check(fn(Cp.data_ptr(), u0.data_ptr(), u1.data_ptr(),
+                       u2.data_ptr(), *(o.data_ptr() for o in out),
+                       *shape, 0.5, 0.25, 0.125, x_chunk, stream), 'x_chunk')
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert torch.equal(o, r), x_chunk
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

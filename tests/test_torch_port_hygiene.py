@@ -182,7 +182,7 @@ def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
     # the shared headers are part of the key of every source that
     # includes them, and of no other
     uses = {s.stem: {h.name for h in build._headers(s)} for s in srcs}
-    assert uses['svc_decision'] == {'svc_eval.cuh'}
+    assert uses['svc_decision'] == uses['svc_fgrad'] == {'svc_eval.cuh'}
     assert uses['brent_step'] == {'brent_body.cuh'}
     assert uses['yf_root'] == {'svc_eval.cuh', 'brent_body.cuh'}
     for s in srcs:
@@ -197,4 +197,4 @@ def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
         fh.write('// edited\n')
     after = {s.stem: build._key([s]) for s in copies}
     assert {k for k in after if after[k] != before[k]} \
-        == {'svc_decision', 'yf_root'}
+        == {'svc_fgrad', 'svc_decision', 'yf_root'}
