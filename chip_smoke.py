@@ -12,7 +12,7 @@ used.  Phases, each of which must pass:
 2. build: nvcc builds the seven kernels from ``pylabfea_tpu_torch/csrc``
    (one compiler per source, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes, with times;
+   paths' shapes, with times (kernel E also in each of its launch forms);
 4. the SVC return maps (512-SV synthetic SVC): the fast ``response_fast``
    (kernel A) on 2^20 states and the reference-faithful
    ``response_chunked`` (kernels D, E and G; F not at all) on 2^18 of
@@ -1080,6 +1080,52 @@ def phase_ref_card_vs_cpu(card_sig, N, dtype):
         fail(f'REF_SOLVE {N}x{N} {dtype}: card and CPU disagree')
 
 
+def check_svc_mm_forms(device, params, card):
+    """Kernel E at one N in each of its launch forms (a group of GT = 8,
+    16 and 32 threads a point; P = 1, 2 and 4 points a thread) in float32,
+    against the plain float64 version under kernel A's bounds, and the
+    first 1024 points of each launch against a launch on those 1024 points
+    alone (GT = 32): the same bits, whatever form the whole launch took."""
+    import torch
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    fill = torch.cuda.get_device_properties(device).multi_processor_count \
+        * 1024
+    sv64 = torch.as_tensor(params['sv'], dtype=torch.float64, device=device)
+    dc64 = torch.as_tensor(params['dc'], dtype=torch.float64, device=device)
+    sv, dc = sv64.float(), dc64.float()
+    gamma, rho = float(params['gamma']), float(params['rho'])
+    ftol = 2e-5 * max(1., float(dc64.abs().sum()))
+    errs = []
+    for form, N in (('GT=8', fill // 16), ('GT=16', fill // 64),
+                    ('GT=32', 1024), ('P=1', fill), ('P=2', 2 * fill + 5),
+                    ('P=4', 4 * fill + 5)):
+        rng = np.random.default_rng(7)
+        u = rng.normal(size=(N, 6))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        x64 = torch.as_tensor(u * rng.uniform(0.3, 1.3, (N, 1)),
+                              dtype=torch.float64, device=device)
+        x = x64.float()
+        f, g = sk.svc_f_grad_mm(x, sv, dc, gamma, rho)
+        fs, gs = sk.svc_f_grad_mm(x[:1024].contiguous(), sv, dc, gamma, rho)
+        fr, gr = sk.svc_f_grad_plain(x64, sv64, dc64, gamma, rho)
+        sync(device)
+        gtol = ftol * 2. * gamma * (float(x64.abs().max())
+                                    + float(sv64.abs().max()))
+        ef = float((f.double() - fr).abs().max())
+        eg = float((g.double() - gr).abs().max())
+        same = torch.equal(fs, f[:1024]) and torch.equal(gs, g[:1024])
+        ok = ef <= ftol and eg <= gtol and same
+        log(f'[3 kernel E] svc_f_grad_mm {form} N={N} nsv={sv.shape[0]} f32 '
+            f'vs plain f64: max|err| f {ef:.3e} (bound {ftol:.3e}), g '
+            f'{eg:.3e} (bound {gtol:.3e}); first 1024 bitwise those of a '
+            f'1024-point launch: {same} {"ok" if ok else "FAIL"}  [{card}]')
+        if not ok:
+            fail(f'svc_f_grad_mm {form} disagrees with its plain version or '
+                 'with its 1024-point launch')
+        errs.append(max(ef, eg))
+    return max(errs), None, None, None
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1115,6 +1161,7 @@ def main():
     ee = [check_svc_mm(device, 2 ** 20 + 17, p, 20, card, 'E')
           for p in (trained, synthetic_svc())]
     ee.append(check_svc_mm(device, 1024, trained, 200, card, 'E'))
+    ee.append(check_svc_mm_forms(device, trained, card))
     ef = [check_brent_step(device, FAITHFUL_N, 20, card)]
 
     def trained_mat(dtype):

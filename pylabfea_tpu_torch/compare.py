@@ -11,13 +11,18 @@ checkout builds and loads its own kernels into its own
 ``pylabfea_tpu_torch/build/``; the checkouts take turns (base, this, this,
 base, ...), so that a drift of the card falls on both.
 
-* bits: kernel A (``svc_f_grad``: f and g with the gradient, f without;
-  float32 and float64) at 2^20+17 points x 135 SVs (the trained SVC of
+* bits: kernels A (``svc_f_grad``: f and g with the gradient, f without),
+  D (``svc_decision``: f) and E (``svc_f_grad_mm``: f and g), float32 and
+  float64, at 2^20+17 points x 135 SVs (the trained SVC of
   ``REF_SOLVE_svc.npz``), 2^20+17 x 512 (``chip_smoke.synthetic_svc``) and
-  1024 x 135, and kernel C (``k_apply3``) at 128^3, 40x24x72 and 67x29x93
-  in float32 and 16^3 in float64, on inputs made from seeds.  Every output
-  of every run is compared bit for bit with the base's first run; each
-  run also times A and C in float32 (CUDA events).
+  1024 x 135; E also at N x 135 on each side of every switch of its launch
+  form (a group of GT = 32, 16, 8 threads a point up to sm_count * 64
+  points, then P = 1, 2, 4 points a thread); kernel C (``k_apply3``) at
+  128^3, 40x24x72 and 67x29x93 in float32 and 16^3 in float64; on inputs
+  made from seeds.  Every output of every run is compared bit for bit
+  with the base's first run; each run also times A, E and C in float32
+  (CUDA events; E at 1024 x 135 also a launch in a CUDA graph,
+  ``chip_smoke.graph_ms``) and E at 2^18 x 512 in float64.
 * steps (``--pairs`` pairs): ``chip_smoke.phase_main_path`` at 1024^2
   (``step_s``, ``step_s_rep``) and the timed warm 0.3 step of the 128^3
   3-D path (``step_s_128cubed``, ``chip_smoke.run_steps3``).
@@ -43,12 +48,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 A_CASES = (('2^20+17 x 135', 2 ** 20 + 17, 'trained'),
            ('2^20+17 x 512', 2 ** 20 + 17, 'synthetic'),
            ('1024 x 135', 1024, 'trained'))
+#: kernel E's launch-form switches, as N = sm_count * 1024 * num // den:
+#: a group of GT = 32, 16, 8 threads a point up to sm_count * 8, 16, 64
+#: points, then one point a thread, two and four from 2 and 4 x
+#: sm_count * 1024; each is evaluated at N and N + 1 (N - 1 and N at the
+#: last two)
+E_SWITCHES = ((1, 128), (1, 64), (1, 16), (2, 1), (4, 1))
 #: kernel C cases: (shape, dtype name)
 C_CASES = (((128, 128, 128), 'float32'), ((40, 24, 72), 'float32'),
            ((67, 29, 93), 'float32'), ((16, 16, 16), 'float64'))
 
 
-def _svc(kind):
+def svc_params(kind):
+    """The trained (``REF_SOLVE_svc.npz``) or the synthetic 512-SV SVC."""
     import chip_smoke
     if kind == 'synthetic':
         return chip_smoke.synthetic_svc()
@@ -57,20 +69,36 @@ def _svc(kind):
                 gamma=float(z['gamma']), rho=float(z['intercept']))
 
 
+def seeded_points(n):
+    """N feature points at radii 0.3-1.3 in random directions (seed 2)."""
+    rng = np.random.default_rng(2)
+    u = rng.normal(size=(n, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    return u * rng.uniform(0.3, 1.3, (n, 1))
+
+
+def e_cases(sms):
+    """Kernel E's cases on a card of ``sms`` SMs: (label, points, SVC)."""
+    fill = sms * 1024
+    cases = list(A_CASES)
+    for num, den in E_SWITCHES:
+        n = fill * num // den
+        for m in ((n - 1, n) if den == 1 else (n, n + 1)):
+            cases.append((f'{m} x 135', m, 'trained'))
+    return cases
+
+
 def bits_worker(out_file):
-    """Run in a checkout: its kernels A and C on the seeded inputs; saves
-    the outputs and the float32 times (ms) to ``out_file``."""
+    """Run in a checkout: its kernels A, D, E and C on the seeded inputs;
+    saves the outputs and the times (ms) to ``out_file``."""
     import chip_smoke
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     from pylabfea_tpu_torch.ops import volume
     dev = torch.device('cuda', 0)
     outs, ms = {}, {}
     for label, n, kind in A_CASES:
-        p = _svc(kind)
-        rng = np.random.default_rng(2)
-        u = rng.normal(size=(n, 6))
-        u /= np.linalg.norm(u, axis=1, keepdims=True)
-        x64 = u * rng.uniform(0.3, 1.3, (n, 1))
+        p = svc_params(kind)
+        x64 = seeded_points(n)
         for dt in (torch.float32, torch.float64):
             x, sv, dc = (torch.as_tensor(a, dtype=dt, device=dev)
                          for a in (x64, p['sv'], p['dc']))
@@ -80,10 +108,35 @@ def bits_worker(out_file):
             key = f'A {label} {str(dt)[6:]}'
             outs.update({f'{key} f': f.cpu(), f'{key} g': g.cpu(),
                          f'{key} f (no grad)': f0.cpu()})
+            outs[f'D {label} {str(dt)[6:]} f'] = sk.svc_decision(
+                x, sv, dc, p['gamma'], p['rho']).cpu()
             if dt == torch.float32:
                 ms[f'A {label}'] = chip_smoke.timed_ms(
                     lambda: sk.svc_f_grad(x, sv, dc, p['gamma'], p['rho']),
                     20)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, n, kind in e_cases(sms):
+        p = svc_params(kind)
+        x64 = seeded_points(n)
+        for dt in (torch.float32, torch.float64):
+            x, sv, dc = (torch.as_tensor(a, dtype=dt, device=dev)
+                         for a in (x64, p['sv'], p['dc']))
+            f, g = sk.svc_f_grad_mm(x, sv, dc, p['gamma'], p['rho'])
+            key = f'E {label} {str(dt)[6:]}'
+            outs.update({f'{key} f': f.cpu(), f'{key} g': g.cpu()})
+            if dt == torch.float32 and (label, n, kind) in A_CASES:
+                ms[f'E {label}'] = chip_smoke.timed_ms(
+                    lambda: sk.svc_f_grad_mm(x, sv, dc, p['gamma'],
+                                             p['rho']), 20)
+                if n <= chip_smoke.SMALL_N:
+                    ms[f'E {label} (graph)'] = chip_smoke.graph_ms(
+                        lambda: sk.svc_f_grad_mm(x, sv, dc, p['gamma'],
+                                                 p['rho']), 200)
+    p = svc_params('synthetic')
+    x, sv, dc = (torch.as_tensor(a, dtype=torch.float64, device=dev)
+                 for a in (seeded_points(2 ** 18), p['sv'], p['dc']))
+    ms['E 2^18 x 512 float64'] = chip_smoke.timed_ms(
+        lambda: sk.svc_f_grad_mm(x, sv, dc, p['gamma'], p['rho']), 20)
     for shape, dname in C_CASES:
         dt = getattr(torch, dname)
         Cp, u = chip_smoke.kapply3_inputs(shape, dt, dev)

@@ -15,32 +15,9 @@
 #pragma once
 #include <cuda_runtime.h>
 
-namespace pylabfea {
+#include "fp_ops.cuh"
 
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
-}
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double div_rn(double a, double b) {
-  return __ddiv_rn(a, b);
-}
+namespace pylabfea {
 
 __device__ __forceinline__ float abs_t(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_t(double a) { return fabs(a); }

@@ -1,0 +1,46 @@
+// Scalar floating-point operations in float and double, one IEEE operation
+// each, shared by the kernels whose results must not depend on what the
+// compiler contracts: fma_t is one fused multiply-add, and the __*_rn
+// intrinsics are one rounded operation that is never contracted into an
+// FMA (nvcc's default -fmad=true may contract a plain a * b + c).
+#pragma once
+#include <cuda_runtime.h>
+
+namespace pylabfea {
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+__device__ __forceinline__ float exp_t(float a) { return expf(a); }
+__device__ __forceinline__ double exp_t(double a) { return exp(a); }
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+
+}  // namespace pylabfea

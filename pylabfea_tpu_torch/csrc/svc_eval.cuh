@@ -4,7 +4,9 @@
 //
 // the formula of pylabfea_tpu/ops/pallas_kernels.py _kernel, shared by
 // kernel D (svc_decision.cu: f at N points) and kernel G (yf_root.cu: f at
-// every marching and Brent abscissa of a per-lane root find).
+// every marching and Brent abscissa of a per-lane root find), and its
+// terms, staging and records for kernel E (svc_fgrad_mm.cu: f and its
+// gradient, with E's own fold of a pair, svc_grad_fold).
 //
 // Support vectors are staged in shared memory as packed 8-value records
 // [sv_0 .. sv_5, |sv|^2, dc], SVC_STAGE of them at a time (16 KB in float32,
@@ -29,6 +31,8 @@
 #pragma once
 #include <cuda_runtime.h>
 
+#include "fp_ops.cuh"
+
 namespace pylabfea {
 
 // features per point (6-D stress features)
@@ -40,16 +44,6 @@ template <typename T>
 struct alignas(8 * sizeof(T)) SvcRecord {
   T v[8];  // sv_0 .. sv_5, |sv|^2, dc
 };
-
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-__device__ __forceinline__ float exp_t(float a) { return expf(a); }
-__device__ __forceinline__ double exp_t(double a) { return exp(a); }
 
 // Streaming multiprocessors of the current device (cached per device; 132
 // on an H100 SXM), for the launch shapes.
@@ -63,7 +57,8 @@ inline int sm_count() {
   return count[dev] > 0 ? count[dev] : 132;
 }
 
-// Stage records [s0, s0 + m) of (sv, dc) into rec, with the whole block.
+// Stage records [s0, s0 + m) of (sv, dc) into rec, with the whole block;
+// |sv|^2 is a chain of FMAs in feature order.
 template <typename T>
 __device__ __forceinline__ void svc_stage(SvcRecord<T>* rec,
                                           const T* __restrict__ sv,
@@ -76,7 +71,7 @@ __device__ __forceinline__ void svc_stage(SvcRecord<T>* rec,
 #pragma unroll
     for (int j = 0; j < SVC_NFEAT; ++j) {
       r.v[j] = p[j];
-      q += r.v[j] * r.v[j];
+      q = fma_t(r.v[j], r.v[j], q);
     }
     r.v[6] = q;
     r.v[7] = dc[s0 + k];
@@ -102,12 +97,13 @@ __device__ __forceinline__ void svc_load(const SvcRecord<double>& r,
   }
 }
 
-// |x|^2 of a point's features.
+// |x|^2 of a point's features, a chain of FMAs in feature order (as
+// |sv|^2 in svc_stage; the form nvcc had contracted q += x * x into).
 template <typename T>
 __device__ __forceinline__ T svc_norm2(const T (&x)[SVC_NFEAT]) {
   T q = T(0);
 #pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) q += x[k] * x[k];
+  for (int k = 0; k < SVC_NFEAT; ++k) q = fma_t(x[k], x[k], q);
   return q;
 }
 
@@ -139,6 +135,37 @@ __device__ __forceinline__ void svc_accumulate(const SvcRecord<T>* rec,
 #pragma unroll
     for (int p = 0; p < P; ++p)
       acc[p] = fma_t(r[7], svc_term(r, x[p], x2[p], gamma), acc[p]);
+  }
+}
+
+// Kernel E's fold of one point-SV pair into its value and gradient sums
+// (svc_fgrad_mm.cu), given the pair's exponential e = svc_term(...):
+// w = dc e, rounded; ws += w; gs_k = fma(w, sv_k, gs_k).  Each operation
+// is written out, so that no contraction the compiler may choose changes
+// the bits.
+template <typename T>
+__device__ __forceinline__ void svc_grad_fold(const T (&r)[8], T e, T& ws,
+                                              T (&gs)[SVC_NFEAT]) {
+  const T w = mul_rn(r[7], e);
+  ws = add_rn(ws, w);
+#pragma unroll
+  for (int k = 0; k < SVC_NFEAT; ++k) gs[k] = fma_t(w, r[k], gs[k]);
+}
+
+// ws[p] and gs[p] += the folds of the staged records [0, m), in order, for
+// the P points a thread owns (kernel E's sums; svc_accumulate's loop,
+// unrolled four times: python -m pylabfea_tpu_torch.sweep_e).
+template <typename T, int P>
+__device__ __forceinline__ void svc_grad_accumulate(
+    const SvcRecord<T>* rec, int m, const T (&x)[P][SVC_NFEAT],
+    const T (&x2)[P], T gamma, T (&ws)[P], T (&gs)[P][SVC_NFEAT]) {
+#pragma unroll 4
+  for (int s = 0; s < m; ++s) {
+    T r[8];
+    svc_load(rec[s], r);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+      svc_grad_fold(r, svc_term(r, x[p], x2[p], gamma), ws[p], gs[p]);
   }
 }
 

@@ -15,100 +15,210 @@
 // What bounds it: per point-SV pair F multiply-adds of the cross term, the
 // distance, the gamma product, one exp, the dc product, the sum and F
 // multiply-adds of w@sv, against 2F + 1 values moved per point:
-// compute-bound.  The plain PyTorch version writes the (N, nsv) kernel and
-// weight matrices to device memory; this kernel writes neither.
+// compute-bound at many points.  At the REF_SOLVE shape (1024 points, 135
+// SVs) one thread a point fills 4 blocks of 132 SMs, and each point's 135
+// pairs run as one dependent chain: latency-bound.  The plain
+// PyTorch version writes the (N, nsv) kernel and weight matrices to device
+// memory; this kernel writes neither.
 //
-// Design: one thread per evaluation point, its F features and |x|^2 in
-// registers, ws and gs_f = sum_s w_s sv_{s,f} accumulated in registers.
-// The block stages the support vectors and dual coefficients in chunks of
-// SV_CHUNK in shared memory and computes the chunk's |sv_s|^2 once per
-// block.  The two products of the TPU kernel stay separate steps here, the
-// cross term X SV^T of a chunk and the weighted sum W SV, each a chain of
-// full-precision FMAs (never TF32), so a later version can move both to
-// tensor-core tiles in an FP32-exact split form without changing the
-// elementwise middle.  F is a template parameter (6: the 6-D stress
-// features); the dtype is float or double.  The kernel allocates nothing
-// and launches on the caller's stream.
+// Every output keeps the bits of the earlier one-thread-a-point form of
+// this kernel, whatever the launch form: per pair the cross term as a
+// chain of F full-precision FMAs (never TF32), the distance and the
+// exponential of svc_eval.cuh's svc_term, then svc_grad_fold: w = dc e
+// rounded, ws += w and gs_k = fma(w, sv_k, gs_k), each sum over the
+// records in SV order; |x|^2 as a chain of FMAs and g_k = -2 gamma
+// fma(ws, x_k, -gs_k), as the compiler had contracted them there (found by
+// comparing bits with every contraction written out: the parent's |x|^2,
+// |sv|^2 and ws x_k - gs_k were FMAs, its ws += dc e was not).  In float32
+// the faithful path's branches follow the last bit of f (PERF.md section
+// 6), so no sum is split or reordered.  The exponential stays expf / exp.
+//
+// Design: the support vectors are staged as svc_eval.cuh's packed 8-value
+// records [sv_0 .. sv_5, |sv|^2, dc], SVC_STAGE at a time (so the SV count
+// is unlimited), two 128-bit shared loads a record in float32.  The launch
+// form follows N:
+//
+//  * few points: a group of GT = 32, 16 or 8 threads serves one point (up
+//    to 8, 16 or 64 points an SM: 1056, 2112, 8448 on 132 SMs).  In each
+//    round thread b of the group computes w of record base + b; threads
+//    0 .. 6 own the seven sums (ws, gs_0 .. gs_5), and each folds the
+//    round's GT values of w, taken by __shfl_sync, in record order: every
+//    sum is the same chain of operations as one thread a point would run,
+//    only the w values come from the group (no tree or butterfly, which
+//    would change the bits).  Thread 0 writes f; ws is broadcast to the
+//    owners of the gs_k, which write g_k.  The fold is replicated on all GT
+//    threads, so more groups an SM only queue it, and the limits are where
+//    the next form was faster (python -m pylabfea_tpu_torch.sweep_e): at
+//    1024 x 135 a group of 32 takes 0.0041 ms a launch, one thread a point
+//    0.0110 ms (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6).
+//    Groups of fewer than eight threads, each owning several sums, lost
+//    to one thread a point in an earlier form and were dropped.
+//  * many points: a thread owns P points (P = 1, 2 or 4, as kernels A and
+//    D choose), their features and sums in registers; one record serves
+//    all P points, and the record loop is unrolled four times.
+//
+// F = 6 (the 6-D stress features); the dtype is float or double.  The
+// kernel allocates nothing and launches on the caller's stream.
 #include <cuda_runtime.h>
+
+#include "svc_eval.cuh"
 
 namespace {
 
-constexpr int SV_CHUNK = 256;
+using pylabfea::fma_t;
+using pylabfea::SVC_NFEAT;
+using pylabfea::SVC_STAGE;
+using pylabfea::SvcRecord;
+
 constexpr int THREADS = 256;
+// the sums a point needs: ws, gs_0 .. gs_5
+constexpr int CHAINS = 1 + SVC_NFEAT;
 
-__device__ __forceinline__ float exp_t(float v) { return expf(v); }
-__device__ __forceinline__ double exp_t(double v) { return exp(v); }
-__device__ __forceinline__ float fma_t(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fma_t(double a, double b, double c) {
-  return fma(a, b, c);
+// g_k = -2 gamma (ws x_k - gs_k), with ws x_k - gs_k one FMA.
+template <typename T>
+__device__ __forceinline__ T grad_component(T gamma, T ws, T xk, T gsk) {
+  return pylabfea::mul_rn(pylabfea::mul_rn(T(-2), gamma),
+                          fma_t(ws, xk, -gsk));
 }
 
-template <typename T, int F>
+template <typename T>
+__device__ __forceinline__ void load_point(const T* __restrict__ x,
+                                           long long i, long long n,
+                                           T (&xr)[SVC_NFEAT]) {
+#pragma unroll
+  for (int k = 0; k < SVC_NFEAT; ++k)
+    xr[k] = i < n ? x[i * SVC_NFEAT + k] : T(0);
+}
+
+// One thread owns P points.
+template <typename T, int P>
 __global__ void __launch_bounds__(THREADS)
-svc_fgrad_mm_kernel(const T* __restrict__ x, const T* __restrict__ sv,
+svc_fgrad_mm_points(const T* __restrict__ x, const T* __restrict__ sv,
                     const T* __restrict__ dc, long long n, int nsv, T gamma,
                     T rho, T* __restrict__ f, T* __restrict__ g) {
-  __shared__ T s_sv[SV_CHUNK * F];
-  __shared__ T s_s2[SV_CHUNK];
-  __shared__ T s_dc[SV_CHUNK];
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  T xr[F];
-  T x2 = T(0);
+  constexpr int F = SVC_NFEAT;
+  __shared__ SvcRecord<T> rec[SVC_STAGE];
+  const long long base = (long long)blockIdx.x * (THREADS * P) + threadIdx.x;
+  T xr[P][F], x2[P], ws[P], gs[P][F];
 #pragma unroll
-  for (int k = 0; k < F; ++k) {
-    xr[k] = live ? x[i * F + k] : T(0);
-    x2 += xr[k] * xr[k];
+  for (int p = 0; p < P; ++p) {
+    load_point(x, base + (long long)p * THREADS, n, xr[p]);
+    x2[p] = pylabfea::svc_norm2(xr[p]);
+    ws[p] = T(0);
+#pragma unroll
+    for (int k = 0; k < F; ++k) gs[p][k] = T(0);
   }
-  T ws = T(0);
-  T gs[F];
-#pragma unroll
-  for (int k = 0; k < F; ++k) gs[k] = T(0);
-
-  for (int s0 = 0; s0 < nsv; s0 += SV_CHUNK) {
-    const int m = min(SV_CHUNK, nsv - s0);
+  for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
+    const int m = min(SVC_STAGE, nsv - s0);
     __syncthreads();  // previous chunk fully consumed
-    for (int k = threadIdx.x; k < m * F; k += blockDim.x)
-      s_sv[k] = sv[(long long)s0 * F + k];
-    for (int k = threadIdx.x; k < m; k += blockDim.x) s_dc[k] = dc[s0 + k];
+    pylabfea::svc_stage(rec, sv, dc, s0, m);
     __syncthreads();
-    for (int k = threadIdx.x; k < m; k += blockDim.x) {
-      T q = T(0);
+    pylabfea::svc_grad_accumulate<T, P>(rec, m, xr, x2, gamma, ws, gs);
+  }
 #pragma unroll
-      for (int j = 0; j < F; ++j) q += s_sv[k * F + j] * s_sv[k * F + j];
-      s_s2[k] = q;
-    }
+  for (int p = 0; p < P; ++p) {
+    const long long i = base + (long long)p * THREADS;
+    if (i >= n) continue;
+    f[i] = ws[p] + rho;
+#pragma unroll
+    for (int k = 0; k < F; ++k)
+      g[i * F + k] = grad_component(gamma, ws[p], xr[p][k], gs[p][k]);
+  }
+}
+
+// A group of GT threads owns one point; thread c < CHAINS of the group
+// owns sum c (0: ws, k + 1: gs_k), the other threads fold into a sum
+// nobody reads.
+template <typename T, int GT>
+__global__ void __launch_bounds__(THREADS)
+svc_fgrad_mm_group(const T* __restrict__ x, const T* __restrict__ sv,
+                   const T* __restrict__ dc, long long n, int nsv, T gamma,
+                   T rho, T* __restrict__ f, T* __restrict__ g) {
+  static_assert(GT >= CHAINS && GT <= 32 && THREADS % GT == 0, "group");
+  __shared__ SvcRecord<T> rec[SVC_STAGE];
+  const long long i = ((long long)blockIdx.x * THREADS + threadIdx.x) / GT;
+  const int c = threadIdx.x % GT;
+  T xr[SVC_NFEAT];
+  load_point(x, i, n, xr);
+  const T x2 = pylabfea::svc_norm2(xr);
+  // ws folds w as fma(w, 1, ws), which is the rounded ws + w; gs_k folds
+  // fma(w, sv_k, gs_k), sv_k from record slot k
+  const bool is_ws = c == 0;
+  const int slot = c > 0 && c < CHAINS ? c - 1 : 0;
+  T acc = T(0);
+  // every thread of the warp runs every shuffle (a group past N computes
+  // on zero features and writes nothing), so the full mask holds
+  for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
+    const int m = min(SVC_STAGE, nsv - s0);
+    __syncthreads();  // previous chunk fully consumed
+    pylabfea::svc_stage(rec, sv, dc, s0, m);
     __syncthreads();
-    for (int s = 0; s < m; ++s) {
-      T cross = T(0);
+    for (int base = 0; base < m; base += GT) {
+      // a round past the last record computes on the last record and
+      // keeps its sums (a select, not a branch)
+      const int last = m - 1 - base;
+      T r[8];
+      pylabfea::svc_load(rec[base + min(c, last)], r);
+      // w = dc exp(-gamma d2) of record base + c, rounded
+      const T w = pylabfea::mul_rn(r[7], pylabfea::svc_term(r, xr, x2, gamma));
 #pragma unroll
-      for (int k = 0; k < F; ++k)
-        cross = fma_t(xr[k], s_sv[s * F + k], cross);
-      T d2 = x2 + s_s2[s] - T(2) * cross;
-      d2 = d2 > T(0) ? d2 : T(0);
-      const T w = s_dc[s] * exp_t(-gamma * d2);
-      ws += w;
-#pragma unroll
-      for (int k = 0; k < F; ++k) gs[k] = fma_t(w, s_sv[s * F + k], gs[k]);
+      for (int b = 0; b < GT; ++b) {
+        const T wb = __shfl_sync(0xffffffffu, w, b, GT);
+        const T v = is_ws ? T(1) : rec[base + min(b, last)].v[slot];
+        const T a = fma_t(wb, v, acc);
+        acc = b <= last ? a : acc;
+      }
     }
   }
-  if (!live) return;
-  f[i] = ws + rho;
+  const T ws = __shfl_sync(0xffffffffu, acc, 0, GT);
+  if (i >= n) return;
+  if (is_ws) f[i] = ws + rho;
 #pragma unroll
-  for (int k = 0; k < F; ++k)
-    g[i * F + k] = T(-2) * gamma * (ws * xr[k] - gs[k]);
+  for (int k = 0; k < SVC_NFEAT; ++k)
+    if (c == k + 1)
+      g[i * SVC_NFEAT + k] = grad_component(gamma, ws, xr[k], acc);
+}
+
+template <typename T, int P>
+void launch_points(const T* x, const T* sv, const T* dc, long long n,
+                   int nsv, T gamma, T rho, T* f, T* g, cudaStream_t stream) {
+  const long long per_block = (long long)THREADS * P;
+  const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
+  svc_fgrad_mm_points<T, P><<<blocks, THREADS, 0, stream>>>(
+      x, sv, dc, n, nsv, gamma, rho, f, g);
+}
+
+template <typename T, int GT>
+void launch_group(const T* x, const T* sv, const T* dc, long long n, int nsv,
+                  T gamma, T rho, T* f, T* g, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n * GT + THREADS - 1) / THREADS);
+  svc_fgrad_mm_group<T, GT><<<blocks, THREADS, 0, stream>>>(
+      x, sv, dc, n, nsv, gamma, rho, f, g);
 }
 
 template <typename T>
 int launch(const T* x, const T* sv, const T* dc, long long n, int nsv,
            int nfeat, T gamma, T rho, T* f, T* g, void* stream) {
-  if (nfeat != 6 || n <= 0 || nsv <= 0 || g == nullptr)
+  if (nfeat != SVC_NFEAT || n <= 0 || nsv <= 0 || g == nullptr)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
-  svc_fgrad_mm_kernel<T, 6><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      x, sv, dc, n, nsv, gamma, rho, f, g);
+  const cudaStream_t s = (cudaStream_t)stream;
+  // a group of 32, 16 or 8 threads a point up to 8, 16 or 64 points an SM
+  // (the fastest form at 64 .. 135168 points in python -m
+  // pylabfea_tpu_torch.sweep_e); past that P points a thread, P = 4 or 2
+  // while the threads still number at least 1024 an SM
+  const long long sms = pylabfea::sm_count();
+  if (n <= sms * 8)
+    launch_group<T, 32>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
+  else if (n <= sms * 16)
+    launch_group<T, 16>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
+  else if (n <= sms * 64)
+    launch_group<T, 8>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
+  else if (n >= sms * 4096)
+    launch_points<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
+  else if (n >= sms * 2048)
+    launch_points<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
+  else
+    launch_points<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, g, s);
   return (int)cudaGetLastError();
 }
 

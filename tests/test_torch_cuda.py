@@ -144,6 +144,52 @@ def test_svc_mm_kernels_match_plain(cuda, n, nsv, dtype, tol):
     assert float((ge.double() - gr).abs().max()) <= gbound
 
 
+#: kernel E's points at its launch switches, N = sm_count() * 1024 * num //
+#: den + off, resolved on the card: a group of GT = 32, 16, 8 threads a
+#: point up to 8, 16, 64 points an SM (the switches at den = 128, 64, 16),
+#: then one, two and four points a thread (at num = 2 and 4); and N off
+#: the 256-thread block
+E_POINTS = [(0, 1, 1), (0, 1, 255), (0, 1, 257)] \
+    + [(1, d, o) for d in (128, 64, 16) for o in (0, 1)] \
+    + [(m, 1, o) for m in (2, 4) for o in (-1, 0)]
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('nsv', [1, 3, 135, 600])
+@pytest.mark.parametrize('num,den,off', E_POINTS)
+def test_svc_mm_grad_launch_forms_match_plain(cuda, num, den, off, nsv,
+                                              dtype, tol):
+    """Kernel E in every launch form (grouped lanes, P points a thread) and
+    with more SVs than one staged chunk (512) against the plain float64
+    version; two launches give the same bits, and a 1024-point slice
+    (grouped lanes, GT = 32) gives the bits of the whole launch, whatever
+    form that took."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = sms * 1024 * num // den + off
+    rng = np.random.default_rng(6)
+    x, sv = (torch.as_tensor(rng.normal(size=s) * 0.7, dtype=dtype,
+                             device=cuda) for s in ((n, 6), (nsv, 6)))
+    dc = torch.as_tensor(rng.uniform(-1., 1., nsv), dtype=dtype, device=cuda)
+    e0 = sk.svc_f_grad_mm.launches
+    f, g = sk.svc_f_grad_mm(x, sv, dc, 2.5, 0.3)
+    f2, g2 = sk.svc_f_grad_mm(x, sv, dc, 2.5, 0.3)
+    torch.cuda.synchronize()
+    assert sk.svc_f_grad_mm.launches == e0 + 2
+    assert torch.equal(f, f2) and torch.equal(g, g2)
+    for a in {0, max(n - 1024, 0), n // 2}:
+        fs, gs = sk.svc_f_grad_mm(x[a:a + 1024].contiguous(), sv, dc, 2.5,
+                                  0.3)
+        assert torch.equal(fs, f[a:a + 1024]) and \
+            torch.equal(gs, g[a:a + 1024]), a
+    fr, gr = sk.svc_f_grad_plain(x.double(), sv.double(), dc.double(), 2.5,
+                                 0.3)
+    bound = tol * max(1., float(dc.abs().sum()))
+    assert float((f.double() - fr).abs().max()) <= bound
+    gbound = bound * 2. * 2.5 * float(x.abs().max() + sv.abs().max())
+    assert float((g.double() - gr).abs().max()) <= gbound
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
 def test_brent_kernel_root_find_matches_cpu(cuda, dtype):
     """Kernel F: a whole root find on the card takes the CPU's iterates

@@ -182,9 +182,12 @@ def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
     # the shared headers are part of the key of every source that
     # includes them, and of no other
     uses = {s.stem: {h.name for h in build._headers(s)} for s in srcs}
-    assert uses['svc_decision'] == uses['svc_fgrad'] == {'svc_eval.cuh'}
-    assert uses['brent_step'] == {'brent_body.cuh'}
-    assert uses['yf_root'] == {'svc_eval.cuh', 'brent_body.cuh'}
+    assert uses['svc_decision'] == uses['svc_fgrad'] \
+        == uses['svc_fgrad_mm'] == {'svc_eval.cuh', 'fp_ops.cuh'}
+    assert uses['brent_step'] == {'brent_body.cuh', 'fp_ops.cuh'}
+    assert uses['yf_root'] == {'svc_eval.cuh', 'brent_body.cuh',
+                               'fp_ops.cuh'}
+    assert uses['kapply2d'] == uses['kapply3d'] == set()
     for s in srcs:
         (tmp_path / s.name).write_bytes(s.read_bytes())
     for h in build.CSRC_DIR.glob('*.cuh'):
@@ -197,4 +200,9 @@ def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
         fh.write('// edited\n')
     after = {s.stem: build._key([s]) for s in copies}
     assert {k for k in after if after[k] != before[k]} \
-        == {'svc_fgrad', 'svc_decision', 'yf_root'}
+        == {'svc_fgrad', 'svc_decision', 'svc_fgrad_mm', 'yf_root'}
+    with open(tmp_path / 'fp_ops.cuh', 'a') as fh:
+        fh.write('// edited\n')
+    again = {s.stem: build._key([s]) for s in copies}
+    assert {k for k in again if again[k] != after[k]} \
+        == set(stems) - {'kapply2d', 'kapply3d'}
