@@ -40,7 +40,21 @@ used.  Phases, each of which must pass:
    one timed solve each, which must launch kernels D, E and G (and not F;
    D and G at most ``MAX_DG_LAUNCHES`` times) and land on the converged
    float64 answers of ``REF_SOLVE.json``; the float64 8^2 solve also on the
-   CPU, which must agree.
+   CPU, which must agree;
+10. ``bench.py``'s 1024 x 1024 3-material inclusion (Hill sdim=6, J2
+   sdim=3, elastic E = 1e3; general BCs, corner pin): an untimed and a
+   timed warm-started 0.25 step, which must launch kernel B; 10b. the
+   plane-stress laminate (5 sections) at 1024 x 1024, one step, with its
+   E_yy beside the Voigt average;
+11. ``bench.py``'s 3-D inclusion: ``incl3d_parity_16cubed`` (float32
+   against float64, < 5e-4) and a timed 64^3 step, which must launch
+   kernel C; 11b. the reference-faithful 3-D route (``load_step3(fast=
+   False)``) at 8^3 with the trained SVC, which must launch D, E and G
+   and not F;
+12. float64 card against CPU on these paths: the inclusion, the laminate
+   (E_yy within 1e-3 of Voigt) and a two-group SVC + elastic mesh (A and
+   D on blocks of odd size) at 64^2, the 3-D inclusion at 16^3 (1e-9,
+   the same CG histories), the 3-D faithful route at 4^3 (1e-6).
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after.  The last two lines are a JSON object with every kernel's
@@ -128,15 +142,12 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def elastic_cv():
-    """Isotropic elastic stiffness E = 200 GPa, nu = 0.3 (MPa)."""
-    E, nu = 200.e3, 0.3
-    hh = E / ((1. + nu) * (1. - 2. * nu))
-    CV = np.zeros((6, 6))
-    CV[:3, :3] = nu * hh
-    np.fill_diagonal(CV[:3, :3], (1. - nu) * hh)
-    CV[3, 3] = CV[4, 4] = CV[5, 5] = (0.5 - nu) * hh
-    return CV
+def elastic_cv(E=200.e3, nu=0.3, planestress=False):
+    """Isotropic elastic stiffness (MPa), E = 200 GPa and nu = 0.3 unless
+    given; the reduced one of a plane-stress element with
+    ``planestress``."""
+    from pylabfea_tpu_torch import convert
+    return convert.elastic_cv(E, nu, planestress)
 
 
 def synthetic_svc(nsv=512):
@@ -1080,6 +1091,272 @@ def phase_ref_card_vs_cpu(card_sig, N, dtype):
         fail(f'REF_SOLVE {N}x{N} {dtype}: card and CPU disagree')
 
 
+# -----------------------------------------------------------------
+# multi-material, plane-stress and 3-D faithful paths (phases 10-12)
+# -----------------------------------------------------------------
+def finite(*ts):
+    import torch
+    return all(bool(torch.isfinite(t).all()) for t in ts)
+
+
+def phase_inclusion(device, N, card):
+    """bench.py's ``step_s_1024_inclusion`` protocol: one untimed 0.25 step,
+    then one timed warm-started 0.25 step, n_inner=2, float32.  Kernel B
+    must be launched in the timed step.  Returns the launches of B in the
+    phase."""
+    import torch
+    from pylabfea_tpu_torch import workloads as wl
+    from pylabfea_tpu_torch.ops import fe_kernels as fek, stencil
+    md, mats, CVs = wl.inclusion_case(N, torch.float32, device)
+    reset_counts()
+    st = fek.init_state(md, CVs, dtype=torch.float32)
+    t0 = time.perf_counter()
+    st, d = fek.load_step_split(md, st, mats, CVs, 0.25, n_inner=2)
+    sync(device)
+    untimed = time.perf_counter() - t0
+    nb = stencil.k_apply.launches
+    t0 = time.perf_counter()
+    st, d = fek.load_step_split(md, st, mats, CVs, 0.25, n_inner=2,
+                                du0=d['du'], kes0=d['kes'], dst0=d['dstiff'])
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters()}
+    timed_b = launches['k_apply'] - nb
+    gsig = d['glob_sig'].double().cpu().numpy()
+    ok = finite(st.u, st.sig, st.epl, st.eps, st.elstiff) and timed_b > 0
+    plastic = [int((st.epl[md.perm[a:a + n]].abs().sum(-1) > 0).sum())
+               for a, n in md.groups]
+    log(f'[10 inclusion] {N}x{N} 3 materials (Hill sdim=6, J2 sdim=3, '
+        f'elastic E=1e3; groups {[n for _, n in md.groups]}), general BCs '
+        f'+ corner pin, load_step_split(0.25, n_inner=2) f32: '
+        f'step_s_{N}_inclusion {dt:.4f} (untimed first step {untimed:.4f}); '
+        f'cg_iters_hist {d["cg_iters_hist"]}; k_apply launches timed step '
+        f'{timed_b}, phase {launches["k_apply"]}; launches {launches}; '
+        f'plastic elements per group {plastic}; glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; finite '
+        f'and B launched {ok}  [{card}]')
+    if not ok:
+        fail('2-D inclusion: non-finite fields or kernel B not launched')
+    return launches['k_apply']
+
+
+def phase_laminate(device, NX, NY, card):
+    """The plane-stress laminate at NX x NY, one float32 load step (the
+    whole displacement, n_inner=1).  Prints E_yy = sig_yy / eps_yy beside
+    the Voigt value; phase 12 holds it to 1e-3 at 64^2."""
+    import torch
+    from pylabfea_tpu_torch import workloads as wl
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    md, mats, CVs = wl.laminate_case(NX, NY, torch.float32, device)
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    st, d = fek.load_step_split(md, fek.init_state(md, CVs), mats, CVs, 1.,
+                                n_inner=1)
+    sync(device)
+    dt = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters()}
+    gs = d['glob_sig'].double().cpu().numpy()
+    ge = d['glob_eps'].double().cpu().numpy()
+    eyy = gs[1] / ge[1]
+    voigt = wl.LAM_VOIGT
+    ok = finite(st.u, st.sig, st.eps) and launches['k_apply'] > 0
+    log(f'[10b laminate] {NX}x{NY} plane stress, 5 sections (E 100e3 / '
+        f'300e3), load_step_split(1.0, n_inner=1) f32: {dt:.4f} s; '
+        f'cg_iters_hist {d["cg_iters_hist"]}; E_yy {eyy:.2f} vs Voigt '
+        f'{voigt:.0f} (rel {abs(eyy - voigt) / voigt:.2e}, the '
+        f'reference golden bound 1e-3 is held in phase 12); max|eps_33| '
+        f'{float(st.eps[:, 2].abs().max()):.3e}; launches {launches}; '
+        f'finite and B launched {ok}  [{card}]')
+    if not ok:
+        fail('laminate: non-finite fields or kernel B not launched')
+    return dt, eyy
+
+
+def phase_box_inclusion(device, N, card, n_parity=16):
+    """bench.py's 3-D inclusion protocol: ``incl3d_parity_16cubed`` (four
+    steps of ``solve_uniaxial3`` at ``n_parity``^3 in float32 against
+    float64, < 5e-4) and at N^3 a timed 0.3 step after an untimed 0.4
+    step, which must launch kernel C.  Returns (seconds, launches of C,
+    parity)."""
+    import torch
+    from pylabfea_tpu_torch import workloads as wl
+    from pylabfea_tpu_torch.ops import fe3d, volume
+    gs = {}
+    for dtype in (torch.float32, torch.float64):
+        md, mats, CVs = wl.box_inclusion_case(n_parity, dtype, device)
+        _, hist = fe3d.solve_uniaxial3(md, mats, CVs, nsteps=4, n_inner=2)
+        gs[dtype] = hist[-1][0].double().cpu().numpy()
+    par = float(np.abs(gs[torch.float32] - gs[torch.float64]).max()
+                / np.abs(gs[torch.float64]).max())
+    log(f'[11 3-D inclusion] {n_parity}^3 solve_uniaxial3(nsteps=4, '
+        f'n_inner=2): incl3d_parity_{n_parity}cubed {par:.3e} (f32 vs f64 '
+        f'glob_sig, bound 5e-4) {"ok" if par < 5e-4 else "FAIL"}')
+    if not par < 5e-4:
+        fail(f'3-D inclusion f32-vs-f64 parity {par:.2e}')
+    md, mats, CVs = wl.box_inclusion_case(N, torch.float32, device)
+    reset_counts()
+    st = fe3d.init_state3(md, CVs, dtype=torch.float32)
+    st, d = fe3d.load_step3(md, st, mats, CVs, 0.4, n_inner=2,
+                            du0=torch.zeros_like(st.u))
+    sync(device)
+    nc = volume.k_apply3.launches
+    t0 = time.perf_counter()
+    st, d = fe3d.load_step3(md, st, mats, CVs, 0.3, n_inner=2, du0=d['du'])
+    sync(device)
+    dt = time.perf_counter() - t0
+    timed_c = volume.k_apply3.launches - nc
+    launches = {c.__name__: c.launches for c in counters()}
+    gsig = d['glob_sig'].double().cpu().numpy()
+    ok = finite(st.u, st.sig, st.epl, st.elstiff) and timed_c > 0
+    log(f'[11 3-D inclusion] {N}^3 (groups {[n for _, n in md.groups]}) '
+        f'load_step3(0.3, n_inner=2, du0) after an untimed 0.4 step, f32: '
+        f'step_s_{N}cubed_3d_inclusion {dt:.4f}; cg_iters_hist '
+        f'{d["cg_iters_hist"]}; k_apply3 launches timed step {timed_c}, '
+        f'both steps {launches["k_apply3"]}; launches {launches}; glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; finite '
+        f'and C launched {ok}  [{card}]')
+    if not ok:
+        fail('3-D inclusion: non-finite fields or kernel C not launched')
+    return dt, launches['k_apply3'], par
+
+
+#: load fractions of the 3-D faithful route: through the yield onset of
+#: the trained SVC (eps_tot 0.002 at the last step)
+FAITHFUL3_FRACS = (0.5, 0.25, 0.25)
+
+
+def faithful3(N, dtype, device):
+    """``load_step3(fast=False)`` with the trained SVC on an N^3 box, the
+    steps of ``FAITHFUL3_FRACS``.  Returns (state, last diag)."""
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import fe3d
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=dtype, device=device)
+    md = fe3d.box_mesh(N, N, N, uniax='z', eps_tot=eps, dtype=dtype,
+                       device=device)
+    st, d = fe3d.init_state3(md, CV, dtype=dtype), None
+    for frac in FAITHFUL3_FRACS:
+        st, d = fe3d.load_step3(md, st, mat, CV, frac, n_inner=2, fast=False,
+                                du0=None if d is None else d['du'])
+    sync(device)
+    return st, d
+
+
+def phase_faithful3(device, N, card):
+    """The 3-D reference-faithful route at N^3 in float32: kernels D, E and
+    G launched, F not."""
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    st, d = faithful3(N, torch.float32, device)
+    dt = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters()}
+    gsig = d['glob_sig'].double().cpu().numpy()
+    ok = (finite(st.u, st.sig, st.epl) and launches['brent_step'] == 0
+          and min(launches['svc_decision'], launches['svc_f_grad_mm'],
+                  launches['svc_yf_root']) > 0)
+    log(f'[11b 3-D faithful] {N}^3 trained SVC, load_step3(fast=False, '
+        f'n_inner=2) over the fractions {FAITHFUL3_FRACS}, f32: {dt:.3f} s; '
+        f'last cg_iters_hist {d["cg_iters_hist"]}; plastic elements '
+        f'{int((st.epl.abs().sum(-1) > 0).sum())}; glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; '
+        f'launches {launches} (D, E, G launched, F not: {ok})  [{card}]')
+    if not ok:
+        fail('3-D faithful route: non-finite fields, kernels D/E/G not '
+             'launched or kernel F launched')
+    return dt, launches
+
+
+def phase_new_card_vs_cpu(device, card, N2=64, N3=16, N3f=4):
+    """Float64 card against CPU on the new paths: the 3-material inclusion,
+    the laminate and the two-group SVC + elastic mesh at N2^2 (a cold step
+    and two warm-started ones), the 3-D inclusion at N3^3 (four steps of
+    ``solve_uniaxial3``): glob_sig and max|sig| within 1e-9 and the same CG
+    histories; the 3-D faithful route at N3f^3 within 1e-6 (phase 9's
+    bound for a Brent iterate that flips).  The laminate's E_yy is held to
+    the reference golden (Voigt, 1e-3)."""
+    import torch
+    from pylabfea_tpu_torch import workloads as wl
+    from pylabfea_tpu_torch.ops import fe3d
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    cpu = torch.device('cpu')
+    f64 = torch.float64
+
+    def steps2d(case, fracs):
+        def run(dev):
+            md, mats, CVs = case(dev)
+            st, d = fek.init_state(md, CVs, dtype=f64), None
+            hist = []
+            for frac in fracs:
+                warm = {} if d is None else dict(
+                    du0=d['du'], kes0=d['kes'], dst0=d['dstiff'])
+                st, d = fek.load_step_split(md, st, mats, CVs, frac,
+                                            n_inner=2, **warm)
+                hist.append(list(d['cg_iters_hist']))
+            return st, d, hist
+        return run
+
+    def steps3d(dev):
+        md, mats, CVs = wl.box_inclusion_case(N3, f64, dev)
+        st, hist = fe3d.solve_uniaxial3(md, mats, CVs, nsteps=4, n_inner=2)
+        return st, {'glob_sig': hist[-1][0], 'glob_eps': hist[-1][1]}, \
+            [int(h[2]) for h in hist]
+
+    cases = [
+        (f'3-material inclusion {N2}^2',
+         steps2d(lambda dev: wl.inclusion_case(N2, f64, dev), (0.25,) * 3)),
+        (f'laminate {N2}^2',
+         steps2d(lambda dev: wl.laminate_case(N2, N2, f64, dev), (1.,))),
+        (f'SVC + elastic groups {N2}^2',
+         steps2d(lambda dev: wl.svc_elastic_case(N2, f64, dev),
+                 (0.25,) * 3)),
+        (f'3-D inclusion {N3}^3', steps3d)]
+    for name, run in cases:
+        reset_counts()
+        sa, da, ia = run(device)
+        sync(device)
+        launches = {c.__name__: c.launches for c in counters()}
+        sb, db, ib = run(cpu)
+        ga, gb = da['glob_sig'].cpu(), db['glob_sig']
+        eg = float((ga - gb).abs().max() / gb.abs().max())
+        ma, mb = sa.sig.abs().max().cpu(), sb.sig.abs().max()
+        em = float((ma - mb).abs() / mb)
+        ok = eg <= 1e-9 and em <= 1e-9 and ia == ib
+        extra = ''
+        if name.startswith('laminate'):
+            eyy = float(da['glob_sig'][1] / da['glob_eps'][1])
+            rel = abs(eyy - wl.LAM_VOIGT) / wl.LAM_VOIGT
+            ok = ok and rel < 1e-3
+            extra = (f'; E_yy {eyy:.3f} vs Voigt {wl.LAM_VOIGT:.0f} (rel '
+                     f'{rel:.2e}, bound 1e-3)')
+        if name.startswith('SVC'):
+            md = wl.svc_elastic_case(N2, f64, cpu)[0]
+            ok = ok and min(launches['svc_f_grad'],
+                            launches['svc_decision']) > 0
+            extra = (f'; group blocks {[n for _, n in md.groups]}, launches '
+                     f'on the card: svc_f_grad {launches["svc_f_grad"]}, '
+                     f'svc_decision {launches["svc_decision"]}')
+        log(f'[12 card vs cpu] {name} float64: glob_sig rel {eg:.2e}, '
+            f'max|sig| rel {em:.2e} (bound 1e-9); cg iterations card {ia} '
+            f'cpu {ib}{extra} {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'card and CPU disagree on the {name}')
+    reset_counts()
+    sa, da = faithful3(N3f, f64, device)
+    launches = {c.__name__: c.launches for c in counters()}
+    sb, db = faithful3(N3f, f64, cpu)
+    ga, gb = da['glob_sig'].cpu(), db['glob_sig']
+    eg = float((ga - gb).abs().max() / gb.abs().max())
+    ma, mb = sa.sig.abs().max().cpu(), sb.sig.abs().max()
+    em = float((ma - mb).abs() / mb)
+    ok = eg <= 1e-6 and em <= 1e-6 and launches['svc_yf_root'] > 0
+    log(f'[12 card vs cpu] 3-D faithful route {N3f}^3 float64: glob_sig rel '
+        f'{eg:.2e}, max|sig| rel {em:.2e} (bound 1e-6); launches on the card '
+        f'{launches} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('card and CPU disagree on the 3-D faithful route')
+
+
 def check_svc_mm_forms(device, params, card):
     """Kernel E at one N in each of its launch forms (a group of GT = 8,
     16 and 32 threads a point; P = 1, 2 and 4 points a thread) in float32,
@@ -1188,6 +1465,11 @@ def main():
                                    (32, f32, 1e-3), (8, f64, 1e-4)], card)
     phase_ref_card_vs_cpu(ref[(8, f64)][2], 8, f64)
     ref32 = ref[(32, f32)][1]
+    phase_inclusion(device, 1024, card)
+    phase_laminate(device, 1024, 1024, card)
+    phase_box_inclusion(device, 64, card)
+    phase_faithful3(device, 8, card)
+    phase_new_card_vs_cpu(device, card)
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions

@@ -5,8 +5,10 @@ The JAX package's device pytrees (``DeviceMaterial``, ``MeshData``,
 numpy arrays plus their static fields, so the port never imports JAX;
 ``material_from_npz`` reads a trained SVC yield function saved as ``.npz``
 (the ``REF_SOLVE_svc.npz`` layout: support_vectors, dual_coef, intercept,
-gamma, scale_seq, sy, CV, dev_only, eps).  Every function builds on the
-card unless ``device`` names another device.
+gamma, scale_seq, sy, CV, dev_only, eps).  A multi-material model
+crosses as a tuple of materials (``materials_from_params``) beside its
+tuple of elastic stiffnesses, which the solvers take as numpy arrays.
+Every function builds on the card unless ``device`` names another device.
 """
 import numpy as np
 import torch
@@ -26,16 +28,18 @@ def material_from_params(params, is_svc, dev_only=False, sdim3=False,
     and its static flags.  Analytic materials (``is_svc=False``) take the
     leaves of the JAX ``device_material_from`` analytic branch: hill, sy,
     khard, drucker and optionally voce_r, voce_b, scale_seq (default sy)
-    and the dummy SVC leaves; a truthy ``tresca``/``barlat`` key or an
-    ``lhs`` key marks criteria that have no device form."""
+    and the dummy SVC leaves; a truthy ``tresca`` key or a ``barlat`` or
+    ``lhs`` key other than None/False marks criteria that have no device
+    form.  ``sdim3`` (the Hill quadratic on principal stresses) applies to
+    analytic materials."""
     if not is_svc:
         params = {'sv': np.zeros((1, 6)), 'dc': np.zeros(1), 'rho': 0.,
                   'gamma': 1., 'scale_seq': params['sy'], **params}
     sv = np.asarray(params['sv'])
-    if sdim3:
-        raise NotImplementedError('sdim=3 (principal-space) materials are '
-                                  'not ported yet')
     if is_svc:
+        if sdim3:
+            raise NotImplementedError('sdim=3 SVC features (cylindrical) '
+                                      'are not ported yet')
         if sv.ndim != 2 or sv.shape[1] != 6:
             raise NotImplementedError('only 6-D stress SVC features are '
                                       f'ported (got sv {sv.shape})')
@@ -43,8 +47,9 @@ def material_from_params(params, is_svc, dev_only=False, sdim3=False,
                                                      'feat_scale', 'tex')):
             raise NotImplementedError('texture-conditioned SVC features are '
                                       'not ported yet')
-    elif (params.get('tresca') or params.get('barlat')
-          or params.get('lhs') is not None):
+    elif bool(params.get('tresca')) or any(
+            params.get(k) is not None and params.get(k) is not False
+            for k in ('barlat', 'lhs')):
         raise NotImplementedError('Tresca, Barlat and LHS criteria have no '
                                   'device form (no analytic flow gradient)')
     device = resolve_device(device)
@@ -61,7 +66,59 @@ def material_from_params(params, is_svc, dev_only=False, sdim3=False,
         rho=num('rho'), gamma=num('gamma'), scale_seq=num('scale_seq'),
         scale_wh=num('scale_wh', 1.), voce_r=num('voce_r', 0.),
         voce_b=num('voce_b', 1.), is_svc=bool(is_svc),
-        dev_only=bool(dev_only))
+        dev_only=bool(dev_only), sdim3=bool(sdim3))
+
+
+#: yield strength of a purely elastic material: far above any physical
+#: stress, so its lanes stay on the elastic branch of the return map, and
+#: finite in float32 through the masked plastic branch (whose
+#: intermediates scale like its square)
+ELASTIC_SY = 1.e15
+
+
+def elastic_material(dtype=DTYPE_DEVICE, device=None):
+    """An analytic DeviceMaterial that never yields (the JAX
+    ``device_material_from`` of a material without plasticity)."""
+    return material_from_params(dict(hill=np.ones(6), sy=ELASTIC_SY,
+                                     khard=0., drucker=0.), is_svc=False,
+                                dtype=dtype, device=device)
+
+
+def elastic_cv(E, nu, planestress=False):
+    """Isotropic elastic stiffness (6, 6) in Voigt notation, float64 numpy,
+    as the host model computes it: the full 3-D tensor, or with
+    ``planestress`` the reduced one of a plane-stress element (empty rows
+    and columns 2, 3 and 4)."""
+    hh = E / ((1. + nu) * (1. - 2. * nu))
+    C44 = (0.5 - nu) * hh
+    CV = np.zeros((6, 6))
+    if planestress:
+        hp = E / (1 - nu * nu)
+        CV[0, 0] = CV[1, 1] = hp
+        CV[0, 1] = CV[1, 0] = nu * hp
+        CV[5, 5] = C44
+        return CV
+    CV[:3, :3] = nu * hh
+    np.fill_diagonal(CV[:3, :3], (1. - nu) * hh)
+    CV[3, 3] = CV[4, 4] = CV[5, 5] = C44
+    return CV
+
+
+def materials_from_params(items, dtype=DTYPE_DEVICE, device=None):
+    """Tuple of DeviceMaterials, one for each dict of ``items``: the JAX
+    ``DeviceMaterial._asdict()`` with its leaves as numpy arrays and its
+    static flags ``is_svc``, ``dev_only``, ``sdim3`` (the material groups
+    of a multi-material mesh, in group order)."""
+    out = []
+    for item in items:
+        params = {k: v for k, v in item.items()
+                  if k not in ('is_svc', 'dev_only', 'sdim3')}
+        out.append(material_from_params(
+            params, is_svc=bool(item['is_svc']),
+            dev_only=bool(item.get('dev_only', False)),
+            sdim3=bool(item.get('sdim3', False)), dtype=dtype,
+            device=device))
+    return tuple(out)
 
 
 def material_from_npz(path, dtype=DTYPE_DEVICE, device=None):
@@ -80,38 +137,51 @@ def material_from_npz(path, dtype=DTYPE_DEVICE, device=None):
         return mat, np.asarray(z['CV'], dtype=np.float64), float(z['eps'])
 
 
+def _group_fields(arrays, groups, device):
+    """perm, inv_perm (int64 tensors) and groups of a multi-material mesh's
+    arrays, or Nones: single-material JAX meshes hold empty ``perm``
+    arrays."""
+    if groups is None:
+        return dict(perm=None, inv_perm=None, groups=None)
+
+    def idx(k):
+        return torch.as_tensor(np.array(arrays[k]), dtype=torch.long,
+                               device=device)
+
+    return dict(perm=idx('perm'), inv_perm=idx('inv_perm'),
+                groups=tuple((int(a), int(n)) for a, n in groups))
+
+
 def mesh_from_arrays(arrays, grid, ndof, nel, groups=None,
                      dtype=DTYPE_DEVICE, device=None):
     """MeshData from the JAX ``MeshData`` leaves as numpy arrays (keys B,
-    Bsum, jacw, vel, fixed, fixed_val, force; ps_b2 when present) and its
-    static fields.  The float64 contraction matrix of the refinement
-    residual comes from ``B`` and ``jacw`` as given, so float32 tables
-    floor the refinement at their rounding."""
+    Bsum, jacw, vel, fixed, fixed_val, force; perm, inv_perm and ps_b2
+    when present) and its static fields.  The float64 contraction matrix
+    of the refinement residual comes from ``B`` and ``jacw`` as given, so
+    float32 tables floor the refinement at their rounding."""
     if grid is None or np.ndim(arrays['B']) != 3:
         raise NotImplementedError('only structured 2-D grids are ported')
-    if groups is not None or np.ndim(arrays.get('ps_b2', ())) == 3:
-        raise NotImplementedError('multi-material meshes are not ported yet')
     device = resolve_device(device)
 
     def ten(k, dt=dtype):
         return torch.as_tensor(np.array(arrays[k]), dtype=dt, device=device)
 
     m64 = m64_matrix(arrays['B'], np.asarray(arrays['jacw']))
+    ps_b2 = ten('ps_b2') if np.ndim(arrays.get('ps_b2', ())) == 3 else None
     return MeshData(B=ten('B'), Bsum=ten('Bsum'), jacw=ten('jacw'),
                     vel=ten('vel'), fixed=ten('fixed', torch.bool),
                     fixed_val=ten('fixed_val'), force=ten('force'),
                     ndof=int(ndof), nel=int(nel), grid=tuple(grid),
                     M64=torch.as_tensor(m64, dtype=torch.float64,
-                                        device=device))
+                                        device=device),
+                    ps_b2=ps_b2, **_group_fields(arrays, groups, device))
 
 
 def mesh3_from_arrays(arrays, grid, ndof, nel, groups=None,
                       dtype=DTYPE_DEVICE, device=None):
     """MeshData3D from the JAX ``MeshData3D`` leaves as numpy arrays (keys
-    B, Bsum, jacw, vel, fixed, fixed_val, force; perm/inv_perm are ignored)
-    and its static fields."""
-    if groups is not None:
-        raise NotImplementedError('multi-material meshes are not ported yet')
+    B, Bsum, jacw, vel, fixed, fixed_val, force; perm and inv_perm with
+    ``groups``) and its static fields."""
     device = resolve_device(device)
 
     def ten(k, dt=dtype):
@@ -120,7 +190,8 @@ def mesh3_from_arrays(arrays, grid, ndof, nel, groups=None,
     return MeshData3D(B=ten('B'), Bsum=ten('Bsum'), jacw=ten('jacw'),
                       vel=ten('vel'), fixed=ten('fixed', torch.bool),
                       fixed_val=ten('fixed_val'), force=ten('force'),
-                      ndof=int(ndof), nel=int(nel), grid=tuple(grid))
+                      ndof=int(ndof), nel=int(nel), grid=tuple(grid),
+                      **_group_fields(arrays, groups, device))
 
 
 def _state_tensors(arrays, dtype, device):

@@ -8,9 +8,10 @@ fast path's fused value + gradient, E for the faithful flow rule's); the
 production cutting-plane return map ``response_fast`` with the exact
 path-secant tangent; and the reference-faithful substepped return map
 ``response`` with the yield-locus distance ``ml_yf_dist`` (bracket marching
-+ Brent per lane, kernel G), for both kinds.  sdim=3 (principal-space)
-materials, work-hardening and texture SVC features raise
-``NotImplementedError``.
++ Brent per lane, kernel G), for both kinds.  Analytic sdim=3 materials
+evaluate the Hill quadratic on the principal stresses (the closed-form
+eigensolver of ``jtensors``).  Cylindrical, work-hardening and texture SVC
+features raise ``NotImplementedError``.
 """
 import dataclasses
 from dataclasses import dataclass
@@ -63,9 +64,6 @@ def material_to(m: DeviceMaterial, dtype) -> DeviceMaterial:
 
 def _require_ported(m: DeviceMaterial):
     """Raise for the material kinds the port does not have yet."""
-    if m.sdim3:
-        raise NotImplementedError('sdim=3 (principal-space) materials are '
-                                  'not ported yet')
     if m.is_svc and m.sv.shape[-1] != 6:
         raise NotImplementedError(
             'the torch port supports 6-D stress SVC features only (no '
@@ -125,17 +123,31 @@ def khard_of(m: DeviceMaterial, g_feat, mask=None):
 # -----------------------------------------------------------------
 # analytic Hill / J2 / Drucker criterion
 # -----------------------------------------------------------------
+def _hill_rows(m: DeviceMaterial, sig):
+    """The rows the Hill quadratic acts on: the principal stresses (..., 3)
+    of an sdim=3 material (the host's sdim=3 convention), else the Voigt
+    components themselves."""
+    if m.sdim3 and sig.shape[-1] == 6:
+        return jt.sig_princ_vals(sig)
+    return sig
+
+
 def seq_hill(m: DeviceMaterial, sig):
     """Hill equivalent stress with Drucker hydrostatic term on Voigt
-    stresses (..., 6) (the 6-parameter form; sdim=3 is not ported)."""
-    return _seq_hill_of(m, sig, sig)
+    stresses (..., 6): the 6-parameter form on the components, or for
+    sdim=3 materials the 3-parameter form on the principal stresses (J2
+    coincides in both)."""
+    return _seq_hill_of(m, sig, _hill_rows(m, sig))
 
 
 def _seq_hill_of(m: DeviceMaterial, sig, s):
-    """Hill equivalent stress of the rows ``s``; ``sig`` supplies the I1
-    trace."""
+    """Hill equivalent stress of the rows ``s`` (Voigt or principal);
+    ``sig`` supplies the I1 trace."""
     hp = m.hill
-    sh3, sh4, sh5 = s[..., 3], s[..., 4], s[..., 5]
+    if s.shape[-1] == 3:
+        sh3 = sh4 = sh5 = 0.
+    else:
+        sh3, sh4, sh5 = s[..., 3], s[..., 4], s[..., 5]
     I2 = 0.5 * (hp[0] * (s[..., 0] - s[..., 1]) ** 2 +
                 hp[1] * (s[..., 1] - s[..., 2]) ** 2 +
                 hp[2] * (s[..., 2] - s[..., 0]) ** 2 +
@@ -147,12 +159,16 @@ def _seq_hill_of(m: DeviceMaterial, sig, s):
 
 
 def _seq_grad_analytic(m: DeviceMaterial, sig):
-    """(seq, d seq / d sig) of the analytic criterion; the gradient at
-    zero stress (a sqrt kink) is guarded to stay finite."""
+    """(seq, d seq / d sig) of the analytic criterion from one principal
+    decomposition; the gradient at zero stress (a sqrt kink) is guarded to
+    stay finite.  For sdim=3 the principal-space gradient fills the normal
+    Voigt slots and the shear slots stay zero (the reference's convention,
+    no back-rotation)."""
     hp = m.hill
-    seq = _seq_hill_of(m, sig, sig)
+    s = _hill_rows(m, sig)
+    seq = _seq_hill_of(m, sig, s)
     seqg = torch.where(seq <= 0., 1., seq)
-    sdev = jt.sig_dev(sig)
+    sdev = jt.sig_dev(s)
     d3 = m.drucker / 3.
     g0 = ((hp[0] + hp[2]) * sdev[..., 0] - hp[0] * sdev[..., 1]
           - hp[2] * sdev[..., 2]) / (2. * seqg) + d3
@@ -160,6 +176,9 @@ def _seq_grad_analytic(m: DeviceMaterial, sig):
           - hp[1] * sdev[..., 2]) / (2. * seqg) + d3
     g2 = ((hp[2] + hp[1]) * sdev[..., 2] - hp[2] * sdev[..., 0]
           - hp[1] * sdev[..., 1]) / (2. * seqg) + d3
+    if s.shape[-1] == 3:
+        zero = torch.zeros_like(seqg)
+        return seq, torch.stack([g0, g1, g2, zero, zero, zero], dim=-1)
     g3 = 3. * hp[3] * sdev[..., 3] / seqg
     g4 = 3. * hp[4] * sdev[..., 4] / seqg
     g5 = 3. * hp[5] * sdev[..., 5] / seqg

@@ -12,11 +12,12 @@ tangent averaging, separable full-weighting transfers, Chebyshev
 smoothing, exact dense bottom solve); the return map is the
 dimension-agnostic ``constitutive.response_fast``.
 
-Ported: single-material box meshes, ``load_step3`` with its warm start,
-mid-step hierarchy rebuild and inexact inner solves, ``solve_uniaxial3``.
-Multi-material meshes (``mat_map``), the reference-faithful return map
-(``fast=False``), ``field_volumes``/``plot_midplane`` and the domain
-decomposition raise ``NotImplementedError`` or are not ported yet.
+Ported: single- and multi-material box meshes (``mat_map``, the grouped
+return map of the 2-D path with tuples of materials and stiffnesses),
+``load_step3`` with its warm start, mid-step hierarchy rebuild and inexact
+inner solves, the fast and the reference-faithful (``fast=False``) return
+maps, ``solve_uniaxial3``.  ``field_volumes``/``plot_midplane`` and the
+domain decomposition are not ported yet.
 """
 import dataclasses
 from dataclasses import dataclass, field
@@ -25,9 +26,9 @@ import numpy as np
 import torch
 
 from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
-from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import volume
-from pylabfea_tpu_torch.ops.fe_kernels import _axpy, _dot, _norm
+from pylabfea_tpu_torch.ops.fe_kernels import _axpy, _dot, _norm, \
+    group_stiffness, material_groups, respond_grouped
 from pylabfea_tpu_torch.ops.multigrid import _restrict_mat
 from pylabfea_tpu_torch.ops.volume import CORNERS3 as _CORNERS3
 from pylabfea_tpu_torch.ops.volume import hex_B as _hex_B
@@ -75,11 +76,13 @@ def _hex_B_modes(lx, ly, lz):
 
 @dataclass
 class MeshData3D:
-    """Structured 3-D mesh tensors of the solver (the JAX ``MeshData3D``,
-    single-material fields).  ``grid`` = (NX, NY, NZ, lx, ly, lz, uniax);
-    nodal fields are (3, nnX, nnY, nnZ).  ``cache`` holds what is derived
-    once per mesh object (the coarse-mesh chain, transfer matrices);
-    ``dataclasses.replace`` starts a copy with an empty one."""
+    """Structured 3-D mesh tensors of the solver (the JAX ``MeshData3D``).
+    ``grid`` = (NX, NY, NZ, lx, ly, lz, uniax); nodal fields are (3, nnX,
+    nnY, nnZ).  Multi-material meshes carry ``perm``/``inv_perm``/
+    ``groups`` as the 2-D ``MeshData`` does (None otherwise).  ``cache``
+    holds what is derived once per mesh object (the coarse-mesh chain,
+    transfer matrices); ``dataclasses.replace`` starts a copy with an
+    empty one."""
     B: torch.Tensor          # (8, 6, 24) hex8 B matrices at the Gauss points
     Bsum: torch.Tensor       # (6, 24) element-average B
     jacw: torch.Tensor       # 0-d: Gauss weight * |J| (= vel / 8)
@@ -90,6 +93,9 @@ class MeshData3D:
     ndof: int
     nel: int
     grid: tuple
+    perm: torch.Tensor = None
+    inv_perm: torch.Tensor = None
+    groups: tuple = None
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -173,11 +179,10 @@ def box_mesh(NX, NY, NZ, LX=1., LY=1., LZ=1., uniax='z', eps_tot=0.01,
     'x' | 'y' | 'z', or 'none') pulled to ``eps_tot`` -- an exact uniaxial
     stress state for a homogeneous material.  ``bc`` (keys xlo/xhi/ylo/
     yhi/zlo/zhi/nodes, see ``make_face_bcs``) replaces the defaults.
-    ``fixed_val``/``force`` are unit-load patterns.  ``device=None`` is
-    the card."""
+    ``fixed_val``/``force`` are unit-load patterns.  ``mat_map`` (NX, NY,
+    NZ) material ids 0..n-1 makes a multi-material mesh.  ``device=None``
+    is the card."""
     device = resolve_device(device)
-    if mat_map is not None:
-        raise NotImplementedError('multi-material meshes are not ported yet')
     nnX, nnY, nnZ = NX + 1, NY + 1, NZ + 1
     lx, ly, lz = LX / NX, LY / NY, LZ / NZ
     B = _hex_B(lx, ly, lz)
@@ -193,14 +198,21 @@ def box_mesh(NX, NY, NZ, LX=1., LY=1., LZ=1., uniax='z', eps_tot=0.01,
             spec[hi] = {ax: ('disp', eps_tot * (LX, LY, LZ)[ax])}
         fixed, fval, force = make_face_bcs(NX, NY, NZ, **spec)
 
+    perm = inv_perm = groups = None
+    if mat_map is not None:
+        perm, inv_perm, groups = material_groups(mat_map)
+
     def dev(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        return None if a is None else torch.as_tensor(
+            np.asarray(a), dtype=dt, device=device)
 
     return MeshData3D(B=dev(B), Bsum=dev(B.mean(axis=0)), jacw=dev(vel / 8.),
                       vel=dev(vel), fixed=dev(fixed, torch.bool),
                       fixed_val=dev(fval), force=dev(force),
                       ndof=3 * nnX * nnY * nnZ, nel=NX * NY * NZ,
-                      grid=(NX, NY, NZ, lx, ly, lz, uniax))
+                      grid=(NX, NY, NZ, lx, ly, lz, uniax),
+                      perm=dev(perm, torch.long),
+                      inv_perm=dev(inv_perm, torch.long), groups=groups)
 
 
 # -----------------------------------------------------------------
@@ -556,10 +568,10 @@ class SolverState3:
 
 
 def init_state3(md: MeshData3D, CV, dtype=DTYPE_DEVICE):
-    """Virgin state with the elastic stiffness ``CV`` in every element
-    (materialized: kernel C takes contiguous tangent volumes)."""
+    """Virgin state with the elastic stiffness in every element (``CV``,
+    or the groups' tuple on a multi-material mesh), materialized: kernel C
+    takes contiguous tangent volumes."""
     NX, NY, NZ = md.grid[:3]
-    CV = torch.as_tensor(CV, dtype=dtype, device=md.device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=md.device)
@@ -567,22 +579,13 @@ def init_state3(md: MeshData3D, CV, dtype=DTYPE_DEVICE):
     return SolverState3(
         u=zeros(*md.fixed.shape), sig=zeros(md.nel, 6),
         epl=zeros(md.nel, 6), eps=zeros(md.nel, 6),
-        elstiff=CV.reshape(36, 1, 1, 1).expand(36, NX, NY, NZ).contiguous())
+        elstiff=group_stiffness(md, CV, dtype).reshape(
+            36, NX, NY, NZ).contiguous())
 
 
-def respond_grouped3(md: MeshData3D, mat, CV, sig, epl, deps, fast=True,
-                     maxiter=12, nsub=1):
-    """Batched return map of a single-material 3-D mesh (one chunked
-    ``response_fast``).  Returns (f, sig, depl, tangent rows).  Per-group
-    materials (a tuple ``mat``) raise."""
-    if isinstance(mat, (tuple, list)):
-        raise NotImplementedError('multi-material meshes are not ported yet')
-    if not fast:
-        raise NotImplementedError('the reference-faithful return map is not '
-                                  'ported yet')
-    CVd = torch.as_tensor(CV, dtype=sig.dtype, device=sig.device)
-    return con.response_fast_chunked(mat, (sig, epl), deps, CVd, maxiter,
-                                     nsub)
+#: the return map is dimension-agnostic: the 2-D grouped dispatch serves
+#: the 3-D mesh's groups
+respond_grouped3 = respond_grouped
 
 
 def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
@@ -590,8 +593,9 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
                du0=None, rebuild_mid=True, cg_tol_inner=None):
     """One incremental load step: elastic predictor + ``n_inner``
     secant-Picard equilibrium iterations, each an MG-CG solve with the
-    current tangent volumes, the batched return map and a change-gated
-    tangent update (the JAX ``load_step3``).
+    current tangent volumes, the batched return map (``fast=False``: the
+    reference-faithful one) and a change-gated tangent update (the JAX
+    ``load_step3``).  Multi-material meshes take tuples ``mat``/``CV``.
 
     The hierarchy is built from the entering tangent field and, with
     ``rebuild_mid``, rebuilt once after the first inner iteration, reusing
@@ -607,7 +611,6 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
         cg_tol_inner = max(cg_tol, 1.e-9 if f64 else 3.e-5)
     if du0 is None:
         du0 = torch.zeros_like(state.u)
-    CV = torch.as_tensor(CV, dtype=state.u.dtype, device=state.u.device)
     fixT = _split3(md.fixed)
     bcT = _split3(md.fixed_val * load_frac)
     frcT = _split3(md.force)

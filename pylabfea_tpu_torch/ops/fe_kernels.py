@@ -8,12 +8,16 @@ Nodal vectors are component-major planes (2, nnX, nnY), carried through the
 solvers as per-component tuples.  Displacement BCs are identity rows on
 fixed dofs (masking around the apply).
 
-Ported: single-material plane-strain meshes, the multigrid-preconditioned
-CG solve, the batched return maps (fast and reference-faithful) and
-``load_step_split`` with its warm-start/hierarchy-reuse protocol, the
-convergence gate, mixed-precision refinement, the float64 commit and the
-faithful tail.  Plane stress and multi-material meshes raise
-``NotImplementedError``.
+Ported: plane-strain and plane-stress meshes, single- and
+multi-material, the multigrid-preconditioned CG solve, the batched return
+maps (fast and reference-faithful) and ``load_step_split`` with its
+warm-start/hierarchy-reuse protocol, the convergence gate, mixed-precision
+refinement, the float64 commit and the faithful tail.
+
+Multi-material meshes (``rect_mesh(mat_map=...)``) sort the elements into
+contiguous per-material blocks (``perm``, ``groups``); the solvers then
+take tuples of materials and elastic stiffnesses aligned with the groups,
+and ``respond_grouped`` runs one return map per block.
 """
 import dataclasses
 import warnings
@@ -31,7 +35,11 @@ from pylabfea_tpu_torch.ops import stencil as st
 @dataclass
 class MeshData:
     """Structured-mesh tensors of the solver (the JAX ``MeshData``,
-    structured single-material fields).  ``cache`` holds what is derived
+    structured fields).  Multi-material meshes carry ``perm`` (a stable
+    sort of the elements by material), its inverse ``inv_perm`` and the
+    (start, size) blocks ``groups``; multi-material plane-stress meshes
+    also carry ``ps_b2``, the per-element eps_33 condensation rows.  These
+    are None on single-material meshes.  ``cache`` holds what is derived
     once per mesh object (the multigrid coarse-mesh chain and transfer
     matrices); ``dataclasses.replace`` starts a copy with an empty one."""
     B: torch.Tensor          # (4, 6, 8) B matrices at the Gauss points
@@ -45,6 +53,10 @@ class MeshData:
     nel: int
     grid: tuple              # (NX, NY, lx, ly, uniax)
     M64: torch.Tensor        # (64, 36) float64 m64_matrix of the geometry
+    perm: torch.Tensor = None      # (Nel,) int64 material sort
+    inv_perm: torch.Tensor = None  # (Nel,) int64: inv_perm[perm[j]] = j
+    ps_b2: torch.Tensor = None     # (8, NX, NY) eps_33 condensation rows
+    groups: tuple = None           # ((start, size), ...) per material
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -57,9 +69,10 @@ class MeshData:
         return self.B.dtype
 
 
-def _quad_B(lx, ly, dtype=np.float64):
-    """B matrices of the bilinear quad at the 4 Gauss points (plane
-    strain)."""
+def _quad_B(lx, ly, dtype=np.float64, ps_CV=None, ps_E=None, ps_nu=None):
+    """B matrices of the bilinear quad at the 4 Gauss points.  With
+    ``ps_CV``/``ps_E``/``ps_nu`` the plane-stress thickness strain
+    eps_33 = -nu (sig_11 + sig_22) / E is folded into row 2 of each B."""
     cpos = np.sqrt(1. / 3.)
     Bs = np.zeros((4, 6, 8), dtype=dtype)
     for i in range(4):
@@ -90,6 +103,9 @@ def _quad_B(lx, ly, dtype=np.float64):
         B[5, 5] = hym
         B[5, 6] = hxp
         B[5, 7] = hyp
+        if ps_CV is not None:
+            hh = np.asarray(ps_CV, dtype=dtype) @ B
+            B[2, :] = -ps_nu * (hh[0, :] + hh[1, :]) / ps_E
     return Bs
 
 
@@ -142,19 +158,37 @@ def make_edge_bcs(NX, NY, left=None, right=None, bot=None, top=None,
     return fixed, fval, force
 
 
+def material_groups(ids):
+    """Stable sort of element material ids into contiguous blocks: (perm,
+    inv_perm, groups) with inv_perm[perm[j]] = j and one (start, size)
+    pair per material id 0..max."""
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    perm = np.argsort(ids, kind='stable')
+    inv_perm = np.argsort(perm)
+    counts = np.bincount(ids, minlength=int(ids.max()) + 1)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    return perm, inv_perm, tuple((int(a), int(c))
+                                 for a, c in zip(starts, counts))
+
+
 def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
-              dtype=DTYPE_DEVICE, device=None, planestress=False,
-              eps_x=None, eps_y=None, bc=None, mat_map=None):
+              dtype=DTYPE_DEVICE, device=None, planestress=False, ps_CV=None,
+              ps_E=None, ps_nu=None, eps_x=None, eps_y=None, bc=None,
+              mat_map=None):
     """Structured NX x NY quad mesh.  Default BCs: left fixed in x, bottom
     fixed in y, top pulled in +y (``uniax='y'``), right pulled in +x
     (``'x'``) or both (``'xy'``, magnitudes ``eps_x``/``eps_y``); ``bc``
     (see ``make_edge_bcs``) replaces them.  ``fixed_val``/``force`` are
-    patterns for a unit load factor.  ``device=None`` is the card."""
+    patterns for a unit load factor.  ``device=None`` is the card.
+
+    ``mat_map`` (NX, NY) material ids 0..n-1 makes a multi-material mesh
+    (see ``MeshData``).  ``planestress=True`` takes the plane-stress
+    reduced stiffness ``ps_CV`` and the isotropic ``ps_E``/``ps_nu``: one
+    material folds the eps_33 condensation into B; several (tuples
+    aligned with the groups) keep B condensation-free and put each
+    element's condensation row into ``ps_b2`` (the reduced CV has an
+    empty row and column 2, so the row never enters the stiffness)."""
     device = resolve_device(device)
-    if planestress:
-        raise NotImplementedError('plane-stress meshes are not ported yet')
-    if mat_map is not None:
-        raise NotImplementedError('multi-material meshes are not ported yet')
     nnX, nnY = NX + 1, NY + 1
     lx, ly = LX / NX, LY / NY
     if bc is not None:
@@ -176,18 +210,40 @@ def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
         if uniax in ('x', 'xy'):
             fixed[0, -1, :] = True              # right: ux prescribed
             fixed_val[0, -1, :] = ex * LX
-    Bs = _quad_B(lx, ly)
+    perm = inv_perm = groups = ps_b2 = None
+    if mat_map is not None:
+        ids = np.asarray(mat_map, dtype=np.int64).reshape(NX * NY)
+        perm, inv_perm, groups = material_groups(ids)
+    if planestress and (ps_CV is None or ps_E is None or ps_nu is None):
+        raise ValueError('planestress=True requires ps_CV, ps_E, ps_nu')
+    if planestress and groups is None:
+        Bs = _quad_B(lx, ly, ps_CV=ps_CV, ps_E=ps_E, ps_nu=ps_nu)
+    else:
+        Bs = _quad_B(lx, ly)
+    if planestress and groups is not None:
+        # eps_33(e) = b2_k(e) . u_e, b2_k = -(nu_k / E_k) [(C_k Bsum)_0 +
+        # (C_k Bsum)_1] for the material k of element e
+        Bsum_np = Bs.sum(axis=0)
+        rows = np.zeros((len(ps_CV), 8))
+        for k, (CVk, Ek, nuk) in enumerate(zip(ps_CV, ps_E, ps_nu)):
+            hh = np.asarray(CVk, float) @ Bsum_np
+            rows[k] = -nuk * (hh[0, :] + hh[1, :]) / Ek
+        ps_b2 = rows[ids].T.reshape(8, NX, NY)
     vel = lx * ly * thick
 
     def dev(a, dt=dtype):
-        return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        return None if a is None else torch.as_tensor(
+            np.asarray(a), dtype=dt, device=device)
 
     return MeshData(B=dev(Bs), Bsum=dev(Bs.sum(axis=0)), jacw=dev(vel * 4.),
                     vel=dev(vel), fixed=dev(fixed, torch.bool),
                     fixed_val=dev(fixed_val), force=dev(force),
                     ndof=2 * nnX * nnY, nel=NX * NY,
                     grid=(NX, NY, lx, ly, uniax),
-                    M64=dev(m64_matrix(Bs, vel * 4.), torch.float64))
+                    M64=dev(m64_matrix(Bs, vel * 4.), torch.float64),
+                    perm=dev(perm, torch.long),
+                    inv_perm=dev(inv_perm, torch.long), ps_b2=dev(ps_b2),
+                    groups=groups)
 
 
 def m64_matrix(B, jacw):
@@ -270,23 +326,38 @@ def _axpy(a, x, y):
 
 def element_deps(md: MeshData, du):
     """Element-average strain increments (Nel, 6) from the nodal
-    displacement increment (2, nnX, nnY)."""
+    displacement increment (2, nnX, nnY); eps_33 from the ``ps_b2`` rows
+    on multi-material plane-stress meshes."""
     up = _gather_planes(md, _split(du))
     planes = [sum(md.Bsum[a, i] * up[i] for i in range(8)) for a in range(6)]
+    if md.ps_b2 is not None:
+        planes[2] = sum(md.ps_b2[i] * up[i] for i in range(8))
     return torch.stack(planes, -1).reshape(md.nel, 6)
 
 
-def respond_grouped(md: MeshData, mat, CV, sig, epl, deps, fast=True,
-                    maxiter=12, nsub=1):
-    """Batched return map of a single-material mesh: one chunked
-    ``response_fast`` or, with ``fast=False``, the chunked
-    reference-faithful ``response``.  Returns (f, sig, depl, tangent
-    rows)."""
-    CVd = torch.as_tensor(CV, dtype=sig.dtype, device=sig.device)
-    if fast:
-        return con.response_fast_chunked(mat, (sig, epl), deps, CVd, maxiter,
-                                         nsub)
-    return con.response_chunked(mat, (sig, epl), deps, CVd)
+def respond_grouped(md, mat, CV, sig, epl, deps, fast=True, maxiter=12,
+                    nsub=1):
+    """Batched return map: one chunked ``response_fast`` or, with
+    ``fast=False``, the chunked reference-faithful ``response``.  On a
+    multi-material mesh (2-D or 3-D) ``mat``/``CV`` are tuples aligned
+    with ``md.groups``: the element rows are gathered by ``perm`` into
+    the material blocks, each non-empty block runs its own return map,
+    and the results return to mesh order as a gather by ``inv_perm``.
+    Returns (f, sig, depl, tangent rows)."""
+    def one(m, C, s, e, d):
+        Cd = torch.as_tensor(C, dtype=sig.dtype, device=sig.device)
+        if fast:
+            return con.response_fast_chunked(m, (s, e), d, Cd, maxiter, nsub)
+        return con.response_chunked(m, (s, e), d, Cd)
+
+    if md.groups is None:
+        return one(mat, CV, sig, epl, deps)
+    sig_g, epl_g, deps_g = sig[md.perm], epl[md.perm], deps[md.perm]
+    parts = [one(mat[k], CV[k], sig_g[a:a + n], epl_g[a:a + n],
+                 deps_g[a:a + n])
+             for k, (a, n) in enumerate(md.groups) if n]
+    return tuple(torch.cat([p[i] for p in parts])[md.inv_perm]
+                 for i in range(4))
 
 
 # -----------------------------------------------------------------
@@ -307,17 +378,31 @@ class SolverState:
     elstiff: torch.Tensor    # (36, NX, NY) tangent planes
 
 
+def group_stiffness(md, CV, dtype):
+    """Elastic stiffness in every element, (36, Nel): ``CV`` everywhere,
+    or on a multi-material mesh the group's ``CV[k]`` in its elements."""
+    if md.groups is None:
+        C = torch.as_tensor(CV, dtype=dtype, device=md.device)
+        return C.reshape(36, 1).expand(36, md.nel)
+    rows = torch.empty((md.nel, 36), dtype=dtype, device=md.device)
+    for k, (a, n) in enumerate(md.groups):
+        rows[md.perm[a:a + n]] = torch.as_tensor(
+            CV[k], dtype=dtype, device=md.device).reshape(36)
+    return rows.T
+
+
 def init_state(md: MeshData, CV, dtype=DTYPE_DEVICE):
-    """Virgin state with the elastic stiffness ``CV`` in every element."""
+    """Virgin state with the elastic stiffness in every element (``CV``,
+    or the groups' tuple on a multi-material mesh)."""
     NX, NY = md.grid[:2]
-    CV = torch.as_tensor(CV, dtype=dtype, device=md.device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=md.device)
 
     return SolverState(u=zeros(*md.fixed.shape), sig=zeros(md.nel, 6),
                        epl=zeros(md.nel, 6), eps=zeros(md.nel, 6),
-                       elstiff=CV.reshape(36, 1, 1).expand(36, NX, NY))
+                       elstiff=group_stiffness(md, CV, dtype).reshape(
+                           36, NX, NY))
 
 
 def _hier_kes(md: MeshData, elstiff):
@@ -391,23 +476,37 @@ def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
     return fy, sig_n, depl_n, elstiff, deps, dst.max()
 
 
+def _materials_to(mat, dtype):
+    """``con.material_to`` of one material or of each of a tuple."""
+    if isinstance(mat, (tuple, list)):
+        return tuple(con.material_to(m, dtype) for m in mat)
+    return con.material_to(mat, dtype)
+
+
 def commit_f64_response(md: MeshData, state: SolverState, mat, CV, du,
                         fast=True, nsub=4):
     """The float64 commit of a float32 step: the response to the
     increment ``du`` re-integrated from the entering state with the
-    float64 copy of the material.  Returns float64 (f, sig, depl)."""
+    float64 copy of the material(s).  Returns float64 (f, sig, depl)."""
     f64 = torch.float64
-    return respond_grouped(md, con.material_to(mat, f64), CV,
+    return respond_grouped(md, _materials_to(mat, f64), CV,
                            state.sig.to(f64), state.epl.to(f64),
                            element_deps(md, du.to(f64)), fast=fast,
                            maxiter=12, nsub=nsub)[:3]
 
 
-def _gate_scale(mat):
+def _gate_scale(md: MeshData, mat):
     """Normalization of the yield excess in the convergence gate: 1 for
     SVC (dimensionless decision values), the yield strength for analytic
-    materials (f = seq - sflow in stress units)."""
-    return 1. if mat.is_svc else float(mat.sy)
+    materials (f = seq - sflow in stress units); per element on a
+    multi-material mesh."""
+    if not isinstance(mat, (tuple, list)):
+        return 1. if mat.is_svc else float(mat.sy)
+    scale = torch.ones(md.nel, dtype=md.dtype, device=md.device)
+    for (a, n), m in zip(md.groups, mat):
+        if not m.is_svc:
+            scale[md.perm[a:a + n]] = float(m.sy)
+    return scale
 
 
 def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
@@ -453,8 +552,10 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         # the tangent-stall threshold: absolute in float64, relative to
         # |CV|_F in float32 (its tangents oscillate at the rounding floor
         # far above 1e-3)
-        dst_exit = 1.e-3 if f64 else max(1.e-3, GATE_DST_RTOL * float(
-            torch.linalg.norm(torch.as_tensor(CV, dtype=md.dtype))))
+        CVs = CV if isinstance(mat, (tuple, list)) else (CV,)
+        dst_exit = 1.e-3 if f64 else max(1.e-3, GATE_DST_RTOL * max(
+            float(torch.linalg.norm(torch.as_tensor(c, dtype=md.dtype)))
+            for c in CVs))
     held = False
     du, kes = du0, kes0
     dst = None if dst0 is None else float(dst0)
@@ -484,7 +585,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         # next hierarchy rebuild, the warm start and the gate
         dst = float(dst_t)
         if tail or (gate and i >= min(n_inner, count - 1)):
-            fmax = float(torch.max(fy / _gate_scale(mat)))
+            fmax = float(torch.max(fy / _gate_scale(md, mat)))
             dst_ok = (dst <= dst_exit) if f64 else (
                 dst <= 0.1 * dst_exit or (held and dst <= dst_exit))
             if fmax <= yf_tolerance * 1.0001 and dst_ok:
@@ -504,7 +605,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             tail, held = True, False
         i += 1
     if not converged and (gate or tail):
-        fmax = float(torch.max(fy / _gate_scale(mat)))
+        fmax = float(torch.max(fy / _gate_scale(md, mat)))
         if fmax > yf_tolerance * 1.0001:
             warnings.warn(
                 f'load_step_split: no convergence of the plasticity '

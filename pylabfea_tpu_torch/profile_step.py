@@ -1,13 +1,17 @@
 """Where the time of one load step goes on the card.
 
     python -m pylabfea_tpu_torch.profile_step [--dim 2|3] [--n N]
+                                              [--inclusion]
                                               [--out profile_out]
 
 ``--dim 2`` (default ``--n 1024``) runs the 2-D path of ``chip_smoke.py``
 (N^2 Hill-ML mesh, trained SVC, float32; one untimed step, then two
 warm-started steps).  ``--dim 3`` (default ``--n 128``) runs its 3-D path
 (N^3 hex8 box, J2 + linear hardening, float32; ``bench.py``'s untimed 0.4
-step, then two warm 0.3 steps).  Reports
+step, then two warm 0.3 steps).  ``--inclusion`` takes ``bench.py``'s
+inclusion workloads instead (``workloads.inclusion_case``, the 2-D
+3-material mesh, and ``box_inclusion_case``, the 3-D stiff cube), with the
+same steps.  Reports
 
 * per-phase wall time of the timed steps (multigrid hierarchy build, MG-CG
   solve, return map + tangent update), each phase closed by a device
@@ -16,7 +20,8 @@ step, then two warm 0.3 steps).  Reports
   the number of kernel launches, and the device-busy share of the step's
   wall time.
 
-Writes ``profile_step[3d].json`` and the profiler table to ``--out``.
+Writes ``profile_step[3d][_inclusion].json`` and the profiler table to
+``--out``.
 Needs a CUDA card; the timings include the per-phase synchronisation.
 """
 import argparse
@@ -26,7 +31,7 @@ import time
 
 import torch
 
-from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch import convert, workloads
 from pylabfea_tpu_torch.ops import fe3d
 from pylabfea_tpu_torch.ops import fe_kernels as fek
 
@@ -44,12 +49,14 @@ def _timed(fn, acc, key):
     return wrapper
 
 
-def _setup2(n, dev):
+def _setup2(n, dev, inclusion=False):
     """2-D path after its untimed step: (step function, phase functions of
     ``fek`` by name)."""
-    mat, CV, eps = convert.material_from_npz(
-        os.path.join(ROOT, 'REF_SOLVE_svc.npz'), device=dev)
-    md = fek.rect_mesh(n, n, eps_tot=eps, device=dev)
+    if inclusion:
+        md, mat, CV = workloads.inclusion_case(n, torch.float32, dev)
+    else:
+        mat, CV, eps = convert.material_from_npz(workloads.NPZ, device=dev)
+        md = fek.rect_mesh(n, n, eps_tot=eps, device=dev)
     st = fek.init_state(md, CV)
     carry = dict(zip(('st', 'd'), fek.load_step_split(md, st, mat, CV, 0.25,
                                                       n_inner=2)))
@@ -63,20 +70,18 @@ def _setup2(n, dev):
     return step, (fek, ('_hier_kes', '_mg_solve', '_respond_and_update'))
 
 
-def _setup3(n, dev):
+def _setup3(n, dev, inclusion=False):
     """3-D path after its untimed 0.4 step (bench.py protocol).  Every
     step is the same warm 0.3 step from that state: a second equal step
     would start converged and do no CG work."""
-    E, nu = 200.e3, 0.3
-    hh = E / ((1. + nu) * (1. - 2. * nu))
-    CV = torch.zeros(6, 6, dtype=torch.float64)
-    CV[:3, :3] = nu * hh
-    CV[range(3), range(3)] = (1. - nu) * hh
-    CV[range(3, 6), range(3, 6)] = (0.5 - nu) * hh
-    mat = convert.material_from_params(
-        dict(hill=[1.] * 6, sy=150., khard=500., drucker=0.), is_svc=False,
-        device=dev)
-    md = fe3d.box_mesh(n, n, n, uniax='z', eps_tot=0.002, device=dev)
+    if inclusion:
+        md, mat, CV = workloads.box_inclusion_case(n, torch.float32, dev)
+    else:
+        CV = convert.elastic_cv(200.e3, 0.3)
+        mat = convert.material_from_params(
+            dict(hill=[1.] * 6, sy=150., khard=500., drucker=0.),
+            is_svc=False, device=dev)
+        md = fe3d.box_mesh(n, n, n, uniax='z', eps_tot=0.002, device=dev)
     st, d0 = fe3d.load_step3(md, fe3d.init_state3(md, CV), mat, CV, 0.4,
                              n_inner=2)
 
@@ -91,13 +96,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--dim', type=int, choices=(2, 3), default=2)
     ap.add_argument('--n', type=int, default=None)
+    ap.add_argument('--inclusion', action='store_true')
     ap.add_argument('--out', default=os.path.join(ROOT, 'profile_out'))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile_step: needs a CUDA card')
     dev = torch.device('cuda', 0)
     n = args.n or (1024 if args.dim == 2 else 128)
-    step, (mod, names) = (_setup2 if args.dim == 2 else _setup3)(n, dev)
+    step, (mod, names) = (_setup2 if args.dim == 2 else _setup3)(
+        n, dev, args.inclusion)
     torch.cuda.synchronize()
 
     phases = {}
@@ -139,7 +146,8 @@ def main():
                          'device_ms': e.self_device_time_total / 1e3}
                         for e in top]}
     os.makedirs(args.out, exist_ok=True)
-    stem = 'profile_step' + ('3d' if args.dim == 3 else '')
+    stem = 'profile_step' + ('3d' if args.dim == 3 else '') \
+        + ('_inclusion' if args.inclusion else '')
     with open(os.path.join(args.out, stem + '.json'), 'w') as f:
         json.dump(res, f, indent=1)
     with open(os.path.join(args.out, stem + '.txt'), 'w') as f:

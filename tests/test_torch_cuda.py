@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import chip_smoke
-from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch import convert, workloads
 from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import fe_kernels as fek
 from pylabfea_tpu_torch.ops import jtensors as jt
@@ -434,3 +434,95 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         volume.k_apply3(Cp, u0[:-1].contiguous(), u1, u2, *h)
     with pytest.raises(ValueError):
         volume.k_apply3(Cp[:35].contiguous(), u0, u1, u2, *h)
+
+
+def _inclusion_els(N, dtype, device):
+    """The tangent planes of bench.py's 3-material inclusion: E = 200e3
+    in the matrix groups, the 200 times softer E = 1e3 in the inclusion."""
+    mat_map = workloads.inclusion_map(N)
+    md = fek.rect_mesh(N, N, LX=4., LY=4., mat_map=mat_map, dtype=dtype,
+                       device=device)
+    CVs = (convert.elastic_cv(200.e3, 0.3),) * 2 \
+        + (convert.elastic_cv(1.e3, 0.27),)
+    return md, fek.init_state(md, CVs, dtype=dtype).elstiff
+
+
+@pytest.mark.parametrize('dtype,rtol', [(torch.float32, 2e-6),
+                                        (torch.float64, 1e-14)])
+@pytest.mark.parametrize('N', [96, 130])
+def test_k_apply_kernel_on_the_inclusion_contrast(cuda, N, dtype, rtol):
+    """Kernel B over per-element stiffness planes with the inclusion's
+    200x contrast, against its plain version; on the soft elements too,
+    each node within rtol of its own scale."""
+    md, els = _inclusion_els(N, dtype, cuda)
+    Kp = fek.element_stiffness_planes(md, els).contiguous()
+    rng = np.random.default_rng(3)
+    u = [torch.as_tensor(rng.normal(size=(N + 1, N + 1)), dtype=dtype,
+                         device=cuda) for _ in range(2)]
+    n0 = stencil.k_apply.launches
+    out = stencil.k_apply(Kp, *u)
+    torch.cuda.synchronize()
+    assert stencil.k_apply.launches == n0 + 1
+    ref = stencil.k_apply_plain(Kp, *u)
+    # the scale of each node: the sum of |K_ij u_j| over its elements
+    Ka = Kp.abs()
+    ua = [x.abs() for x in u]
+    mag = stencil.k_apply_plain(Ka, *ua)
+    for o, r, m in zip(out, ref, mag):
+        assert bool(((o - r).abs() <= 4. * rtol * m + 1e-300).all())
+
+
+#: odd group block sizes: the inclusion's three groups at 1024^2 and small
+#: ones off the kernels' thread blocks
+GROUP_BLOCKS = [1, 3, 4097, 116_281, 465_977, 466_318]
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('n', GROUP_BLOCKS)
+def test_svc_kernels_on_odd_group_blocks(cuda, n, dtype, tol):
+    """Kernels A and D on a block of n rows gathered by a material sort
+    and sliced out of the sorted rows (the grouped return map's operand),
+    with the trained SVC, against the plain float64 version."""
+    mat, _, _ = convert.material_from_npz(chip_smoke.NPZ, dtype=dtype,
+                                          device=cuda)
+    rng = np.random.default_rng(n)
+    total = n + 37
+    u = rng.normal(size=(total, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    rows = torch.as_tensor(u * rng.uniform(0.3, 1.3, (total, 1)),
+                           dtype=dtype, device=cuda)
+    perm = torch.as_tensor(rng.permutation(total), device=cuda)
+    x = rows[perm][17:17 + n]
+    a0, d0 = sk.svc_f_grad.launches, sk.svc_decision.launches
+    f, g = sk.svc_f_grad(x, mat.sv, mat.dc, mat.gamma, mat.rho)
+    fd = sk.svc_decision(x, mat.sv, mat.dc, mat.gamma, mat.rho)
+    torch.cuda.synchronize()
+    assert (sk.svc_f_grad.launches, sk.svc_decision.launches) \
+        == (a0 + 1, d0 + 1)
+    fr, gr = sk.svc_f_grad_plain(x.double(), mat.sv.double(),
+                                 mat.dc.double(), mat.gamma, mat.rho)
+    bound = tol * max(1., float(mat.dc.abs().sum()))
+    assert float((f.double() - fr).abs().max()) <= bound
+    assert float((fd.double() - fr).abs().max()) <= bound
+    gbound = bound * 2. * mat.gamma * float(x.abs().max()
+                                            + mat.sv.abs().max())
+    assert float((g.double() - gr).abs().max()) <= gbound
+
+
+def test_inclusion_step_on_the_card_matches_the_cpu(cuda):
+    """One float64 load step of the 3-material inclusion at 32^2 (Hill,
+    sdim=3 J2, elastic) on the card and on the CPU: 1e-9 and the same CG
+    history."""
+    res = []
+    for dev in (cuda, torch.device('cpu')):
+        md, mats, CVs = workloads.inclusion_case(32, torch.float64, dev)
+        st = fek.init_state(md, CVs, dtype=torch.float64)
+        for _ in range(2):
+            st, d = fek.load_step_split(md, st, mats, CVs, 0.5, n_inner=2)
+        res.append((st.sig.cpu(), d['glob_sig'].cpu(), d['cg_iters_hist']))
+    (sa, ga, ia), (sb, gb, ib) = res
+    assert ia == ib
+    assert float((sa - sb).abs().max()) <= 1e-9 * float(sb.abs().max())
+    assert float((ga - gb).abs().max()) <= 1e-9 * float(gb.abs().max())
+    assert float(sb.abs().max()) > 0

@@ -6,6 +6,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -77,6 +78,13 @@ def test_constructors_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         convert.material_from_params(dict(hill=[1.] * 6, sy=1., khard=0.,
                                           drucker=0.), is_svc=False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.materials_from_params([dict(hill=[1.] * 6, sy=1., khard=0.,
+                                            drucker=0., is_svc=False)])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.elastic_material()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        fe_kernels.rect_mesh(4, 4, mat_map=np.eye(4, dtype=int))
     md = fe_kernels.rect_mesh(4, 4, device='cpu')
     arrays = {f: getattr(md, f).numpy() for f in ('B', 'Bsum', 'jacw', 'vel',
                                                   'fixed', 'fixed_val',

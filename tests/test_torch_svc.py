@@ -216,11 +216,17 @@ def test_unported_materials_raise():
     params = {k: np.asarray(v) for k, v in dm._asdict().items()
               if k not in ('is_svc', 'dev_only', 'sdim3')}
     cpu = dict(device='cpu')
-    with pytest.raises(NotImplementedError):
-        convert.material_from_params(dict(params, tresca=True), is_svc=False,
-                                     **cpu)
+    for crit in (dict(tresca=True), dict(barlat=np.ones(18)),
+                 dict(lhs=np.zeros(4))):
+        with pytest.raises(NotImplementedError):
+            convert.material_from_params(dict(params, **crit), is_svc=False,
+                                         **cpu)
+    # sdim=3 SVC features are the cylindrical (seq, theta) ones
     with pytest.raises(NotImplementedError):
         convert.material_from_params(params, is_svc=True, sdim3=True, **cpu)
+    with pytest.raises(NotImplementedError):
+        convert.material_from_params(dict(params, sv=np.ones((4, 2))),
+                                     is_svc=True, **cpu)
     with pytest.raises(NotImplementedError):
         convert.material_from_params(dict(params, tex=np.ones(3)),
                                      is_svc=True, **cpu)
