@@ -13,6 +13,9 @@ used.  Phases, each of which must pass:
    (one compiler per source, in parallel);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with times (kernel E also in each of its launch forms);
+   A, D and E also at F = 2, 9 and 15 features (2^20+17 points x 512
+   synthetic SVs), G on 1024 stresses with the trained fixtures of those
+   widths (``pylabfea_tpu_torch/data``);
 4. the SVC return maps (512-SV synthetic SVC): the fast ``response_fast``
    (kernel A) on 2^20 states and the reference-faithful
    ``response_chunked`` (kernels D, E and G; F not at all) on 2^18 of
@@ -54,11 +57,25 @@ used.  Phases, each of which must pass:
 12. float64 card against CPU on these paths: the inclusion, the laminate
    (E_yy within 1e-3 of Voigt) and a two-group SVC + elastic mesh (A and
    D on blocks of odd size) at 64^2, the 3-D inclusion at 16^3 (1e-9,
-   the same CG histories), the 3-D faithful route at 4^3 (1e-6).
+   the same CG histories), the 3-D faithful route at 4^3 (1e-6);
+13. the SVC feature layouts beyond 6-D stress, with the trained fixtures:
+   13a. phase 5's 1024 x 1024 path with the work-hardening SVC (15
+   features; kernel A at F = 15, the batch-mean khard_of of each step);
+   13b. the same with the cylindrical SVC (2 features, through the
+   closed-form eigensolver on 2^20 lanes); 13c. phase 9's solve at 16 x 16
+   float32 with the cylindrical SVC (D, E and G at F = 2, F not at all);
+   13d. the GSH_3 texture SVC (9 features, the kernels' runtime-F form):
+   ``response_fast`` on 2^20 states and ``ml_yf_dist`` on 2^16 (A, D, G),
+   64 lanes of each against the CPU; 13e. float64 card against CPU: the
+   13a/13b steps at 64 x 64 (1e-9, the same CG histories) and the
+   cylindrical faithful solve at 8 x 8 (1e-6).
 
 Every launch count of a path is set to 0 just before that path runs and
-read just after.  The last two lines are a JSON object with every kernel's
-launches, error, times and bound, and ``{"ok": true, "device": {...}}``.
+read just after (also by feature count, ``launches_by_nfeat``).  The last
+two lines are a JSON object with every kernel's launches, error, times and
+bound (a kernel at another feature count than 6 as ``name[F=n]``, with its
+launches on the path of phase 13 that ran it), and ``{"ok": true,
+"device": {...}}``.
 Any failure raises and exits non-zero without those lines.
 """
 import json
@@ -71,6 +88,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, 'REF_SOLVE_svc.npz')
+#: the trained SVC fixtures of the other feature layouts (work hardening,
+#: cylindrical, texture; ``tools/make_torch_svc_fixtures.py``)
+DATA = os.path.join(ROOT, 'pylabfea_tpu_torch', 'data')
 REF_JSON = os.path.join(ROOT, 'REF_SOLVE.json')
 #: states of the float64 faithful return-map phase (2^20 would take about
 #: 100 s there) and of the Brent-step kernel check
@@ -150,11 +170,13 @@ def elastic_cv(E=200.e3, nu=0.3, planestress=False):
     return convert.elastic_cv(E, nu, planestress)
 
 
-def synthetic_svc(nsv=512):
+def synthetic_svc(nsv=512, nfeat=6):
     """The 512-SV synthetic SVC of ``bench.py`` (``flagship``): unit
-    directions at radii 0.9 / 1.1 with dual coefficients -/+0.5."""
+    directions at radii 0.9 / 1.1 with dual coefficients -/+0.5; with
+    ``nfeat`` other than 6 the same construction in that many
+    features."""
     rng = np.random.default_rng(0)
-    u = rng.normal(size=(nsv, 6))
+    u = rng.normal(size=(nsv, nfeat))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     lab = np.where(np.arange(nsv) % 2 == 0, 0.9, 1.1)
     return dict(hill=np.ones(6), sy=SY, khard=0., drucker=0.,
@@ -162,13 +184,14 @@ def synthetic_svc(nsv=512):
                 rho=0.05, gamma=2.5, scale_seq=SY)
 
 
-def return_map_states(N, seed=1):
-    """Stress states near the yield locus and strain increments that drive
-    plastic flow (``bench.py`` return-map workload)."""
+def return_map_states(N, seed=1, sy=SY):
+    """Stress states near the yield locus (of yield strength ``sy``) and
+    strain increments that drive plastic flow (``bench.py`` return-map
+    workload)."""
     rng = np.random.default_rng(seed)
     u = rng.normal(size=(N, 6))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    sig = u * SY * rng.uniform(0.55, 0.95, (N, 1))
+    sig = u * sy * rng.uniform(0.55, 0.95, (N, 1))
     deps = rng.normal(0., 1.0e-4, (N, 6))
     return sig, deps
 
@@ -191,18 +214,54 @@ def phase_device():
     return card
 
 
+def ptxas_table(text):
+    """Each compiled kernel of an nvcc ``-Xptxas -v`` log: (source, kernel
+    name demangled by cu++filt where the toolkit has it, registers, spill
+    store and load bytes, stack frame bytes)."""
+    import re
+    rows, src, cur = [], None, None
+    for ln in text.splitlines():
+        if ln.startswith('--- '):
+            src = ln[4:].strip()
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = [src, m.group(1), 0, 0, 0, 0]
+            rows.append(cur)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', ln)
+        if m and cur is not None:
+            cur[5], cur[3], cur[4] = (int(g) for g in m.groups())
+        m = re.search(r'Used (\d+) registers', ln)
+        if m and cur is not None:
+            cur[2] = int(m.group(1))
+    filt = os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                        'bin', 'cu++filt')
+    if rows and os.path.exists(filt):
+        out = subprocess.run([filt], input='\n'.join(r[1] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                n = n[:n.rindex('>(') + 1] if '>(' in n else n
+                r[1] = re.sub(r'^void |\(anonymous namespace\)::|pylabfea::|'
+                              r'\((int|bool)\)', '', n)
+    return rows
+
+
 def phase_build():
     from pylabfea_tpu_torch.kernels import build
     t0 = time.perf_counter()
     built = build.load()
     wall = time.perf_counter() - t0
-    ptx = [ln.strip() for ln in built.log.splitlines()
-           if 'registers' in ln or 'spill' in ln or 'entry function' in ln
-           or ln.startswith('---')]
     log(f'[2 build] {", ".join(p.name for p in built.paths)}: nvcc '
         f'{built.seconds:.2f} s (parallel), load {wall:.2f} s')
-    for ln in ptx:
-        log(f'    ptxas: {ln}')
+    rows = ptxas_table(built.log)
+    for src, name, regs, sst, sld, stack in rows:
+        log(f'    ptxas: {src} {name}: {regs} registers, spill stores '
+            f'{sst} B, loads {sld} B, stack {stack} B')
+    spills = [r for r in rows if r[3] or r[4]]
+    log(f'[2 build] {len(rows)} kernels, {len(spills)} with spills'
+        + (f' ({", ".join(r[1] for r in spills)})' if spills else ''))
 
 
 def check_kapply(device, NX, NY, reps, card):
@@ -296,11 +355,14 @@ def check_kapply3(device, shape, dtype, rtol, reps, card):
     return err, ms, pms, bnd
 
 
-def check_svc(device, N, params, reps, card):
+def check_svc(device, N, params, reps, card, n_ref=None):
+    """Kernel A at N points against its plain float64 version (on the
+    first ``n_ref`` points, all by default: the plain version's (N, nsv)
+    matrices), then kernel and plain float32 times and the bound."""
     import torch
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     rng = np.random.default_rng(2)
-    u = rng.normal(size=(N, 6))
+    u = rng.normal(size=(N, np.shape(params['sv'])[1]))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     x64 = torch.as_tensor(u * rng.uniform(0.3, 1.3, (N, 1)),
                           dtype=torch.float64, device=device)
@@ -313,15 +375,18 @@ def check_svc(device, N, params, reps, card):
     gtol = ftol * 2. * gamma * (float(x64.abs().max())
                                 + float(sv64.abs().max()))
     errs = []
+    nr = N if n_ref is None else n_ref
     for with_grad in (True, False):
         f, g = sk.svc_f_grad(x, sv, dc, gamma, rho, with_grad)
-        fr, gr = sk.svc_f_grad_plain(x64, sv64, dc64, gamma, rho, with_grad)
+        fr, gr = sk.svc_f_grad_plain(x64[:nr], sv64, dc64, gamma, rho,
+                                     with_grad)
         sync(device)
-        ef = float((f.double() - fr).abs().max())
-        eg = float((g.double() - gr).abs().max()) if with_grad else 0.
+        ef = float((f[:nr].double() - fr).abs().max())
+        eg = float((g[:nr].double() - gr).abs().max()) if with_grad else 0.
         ok = ef <= ftol and eg <= gtol
         log(f'[3 kernel A] svc_f_grad N={N} nsv={sv.shape[0]} '
-            f'with_grad={with_grad} f32 vs plain f64: max|err| f {ef:.3e} '
+            f'F={sv.shape[1]} with_grad={with_grad} f32 vs plain f64 (first '
+            f'{nr} points): max|err| f {ef:.3e} '
             f'(bound {ftol:.3e}), g {eg:.3e} (bound {gtol:.3e}) '
             f'{"ok" if ok else "FAIL"}')
         if not ok:
@@ -338,7 +403,7 @@ def check_svc(device, N, params, reps, card):
     # the exp, the dc product, the f sum and F multiply-adds of g)
     bnd = bound_ms((2 * N * F + N + nsv * (F + 1)) * 4,
                    N * nsv * (5 * F + 4))
-    log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} f32 with_grad: '
+    log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} F={F} f32 with_grad: '
         f'kernel {ms:.4f} ms ({gexp:.1f} G point-SV pairs/s), plain '
         f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
         f'of it)  [{card}]')
@@ -350,16 +415,17 @@ def check_svc(device, N, params, reps, card):
     return max(errs), ms, pms, bnd
 
 
-def check_svc_mm(device, N, params, reps, card, which):
+def check_svc_mm(device, N, params, reps, card, which, n_ref=None):
     """Kernel D (``which='D'``, the decision function) or E (``'E'``, value
     and gradient), both with matmul-expansion distances: f32 at N points
     against the plain f64 version under kernel A's bounds, f64 at 4099
     points against the plain f64 version (1e-12 max(1, sum|dc|)), then
-    kernel and plain f32 times and the bound."""
+    kernel and plain f32 times and the bound.  The f32 comparison takes
+    the first ``n_ref`` points (all by default)."""
     import torch
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     rng = np.random.default_rng(2)
-    u = rng.normal(size=(N, 6))
+    u = rng.normal(size=(N, np.shape(params['sv'])[1]))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     x64 = torch.as_tensor(u * rng.uniform(0.3, 1.3, (N, 1)),
                           dtype=torch.float64, device=device)
@@ -380,19 +446,21 @@ def check_svc_mm(device, N, params, reps, card, which):
 
     name = 'svc_f_grad_mm' if grad else 'svc_decision'
     errs = []
+    nr = N if n_ref is None else n_ref
     for xx, s_, d_, ftol in ((x, sv, dc, 2e-5 * sdc),
                              (x64[:4099], sv64, dc64, 1e-12 * sdc)):
         gtol = ftol * 2. * gamma * (float(x64.abs().max())
                                     + float(sv64.abs().max()))
         f, g = kern(xx, s_, d_)
-        fr, gr = plain(x64[:xx.shape[0]], sv64, dc64)
+        n = min(nr, xx.shape[0])
+        fr, gr = plain(x64[:n], sv64, dc64)
         sync(device)
-        ef = float((f.double() - fr).abs().max())
-        eg = float((g.double() - gr).abs().max()) if grad else 0.
+        ef = float((f[:n].double() - fr).abs().max())
+        eg = float((g[:n].double() - gr).abs().max()) if grad else 0.
         ok = ef <= ftol and eg <= gtol
         log(f'[3 kernel {which}] {name} N={xx.shape[0]} nsv={sv.shape[0]} '
-            f'{xx.dtype} vs plain f64: max|err| f {ef:.3e} (bound '
-            f'{ftol:.3e}), g {eg:.3e} (bound {gtol:.3e}) '
+            f'F={sv.shape[1]} {xx.dtype} vs plain f64: max|err| f {ef:.3e} '
+            f'(bound {ftol:.3e}), g {eg:.3e} (bound {gtol:.3e}) '
             f'{"ok" if ok else "FAIL"}')
         if not ok:
             fail(f'{name} nsv={sv.shape[0]} {xx.dtype} disagrees with its '
@@ -409,8 +477,9 @@ def check_svc_mm(device, N, params, reps, card, which):
     outs = N * (F + 1) if grad else N
     bnd = bound_ms((N * F + outs + nsv * (F + 1)) * 4,
                    N * nsv * ((4 if grad else 2) * F + 7))
-    log(f'[3 kernel {which}] {name} N={N} nsv={nsv} f32: kernel {ms:.4f} '
-        f'ms ({N * nsv / (ms * 1e-3) / 1e9:.1f} G point-SV pairs/s), plain '
+    log(f'[3 kernel {which}] {name} N={N} nsv={nsv} F={F} f32: kernel '
+        f'{ms:.4f} ms ({N * nsv / (ms * 1e-3) / 1e9:.1f} G point-SV '
+        f'pairs/s), plain '
         f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
         f'of it)  [{card}]')
     if N <= SMALL_N:
@@ -490,8 +559,9 @@ def check_yf_root(device, N, mat_of, reps, card, label):
     of 64 sampled lanes within 1e-3 (rounding decides per lane between
     Brent's root and the fallback).  Then kernel and plain float32 times
     and the bound, from the evaluations the kernel counted (each nsv x
-    (2F + 7) operations).  Returns (max error of the agreeing lanes, ms,
-    plain ms, bound)."""
+    (2F + 7) operations).  A work-hardening material gets plastic strains
+    of 2e-3 (fixed features along each ray).  Returns (max error of the
+    agreeing lanes, ms, plain ms, bound)."""
     import torch
     from pylabfea_tpu_torch.ops import constitutive as con
     from pylabfea_tpu_torch.ops import svc_kernels as sk
@@ -499,6 +569,7 @@ def check_yf_root(device, N, mat_of, reps, card, label):
     u = rng.normal(size=(N, 6))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     sig_np = u * SY * rng.uniform(0.3, 2.0, (N, 1))
+    epl_np = rng.normal(0., 2e-3, (N, 6))
     pick = np.random.default_rng(5).choice(N, 64, replace=False)
     errs, seen = [], {}
 
@@ -510,8 +581,10 @@ def check_yf_root(device, N, mat_of, reps, card, label):
         mat = mat_of(dtype)
         sig = torch.as_tensor(sig_np, dtype=dtype, device=device)
         peeq = torch.zeros(N, dtype=dtype, device=device)
-        d = con.ml_yf_dist(mat, sig, peeq, root=kernel)
-        dp = con.ml_yf_dist(mat, sig, peeq, root=sk.svc_yf_root_plain)
+        epl = torch.as_tensor(epl_np, dtype=dtype, device=device) \
+            if con._has_wh(mat) else None
+        d = con.ml_yf_dist(mat, sig, peeq, epl, root=kernel)
+        dp = con.ml_yf_dist(mat, sig, peeq, epl, root=sk.svc_yf_root_plain)
         sync(device)
         fin, fin_k = torch.isfinite(dp), torch.isfinite(d)
         scale = float(dp[fin].abs().max())
@@ -531,7 +604,8 @@ def check_yf_root(device, N, mat_of, reps, card, label):
                     f'{int(agree.sum())} of 64 sampled lanes within 1e-3*'
                     f'{scale:.1f} (bound 48), max|err| of those {err:.3e}')
         log(f'[3 kernel G] svc_yf_root N={N} {label} nsv={mat.sv.shape[0]} '
-            f'{dtype} vs plain, distances of ml_yf_dist: {rule} '
+            f'F={mat.sv.shape[1]} {dtype} vs plain, distances of '
+            f'ml_yf_dist: {rule} '
             f'{"ok" if ok else "FAIL"}')
         if not ok:
             fail(f'svc_yf_root {label} {dtype} disagrees with its plain '
@@ -544,11 +618,15 @@ def check_yf_root(device, N, mat_of, reps, card, label):
             nev = int(evals.sum())
             ms = timed_ms(lambda: sk.svc_yf_root(*a, **kw), reps)
             pms = timed_ms(lambda: sk.svc_yf_root_plain(*a, **kw), 1)
-            nsv = mat.sv.shape[0]
-            # su, start, top, sv, dc read and xs, ok written once
-            bnd = bound_ms((8 * N + 7 * nsv + N) * 4 + N,
-                           nev * nsv * (2 * 6 + 7))
-    log(f'[3 kernel G] svc_yf_root N={N} {label} nsv={nsv} f32: kernel '
+            nsv, F = mat.sv.shape
+            fmap = a[7]
+            nextra = 0 if fmap.extra is None else fmap.extra.numel()
+            # su, start, top, the per-lane features, sv, dc read and xs,
+            # ok written once
+            bnd = bound_ms((a[0].numel() + 2 * N + nextra + (F + 1) * nsv
+                            + N) * 4 + N, nev * nsv * (2 * F + 7))
+    log(f'[3 kernel G] svc_yf_root N={N} {label} nsv={nsv} F={F} f32: '
+        f'kernel '
         f'{ms:.4f} ms ({nev} evaluations, {nev / N:.1f} per lane), plain '
         f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
         f'of it)  [{card}]')
@@ -709,8 +787,10 @@ def counters():
 
 
 def reset_counts():
+    from pylabfea_tpu_torch.ops import svc_kernels
     for c in counters():
         c.launches = 0
+    svc_kernels.reset_launches()
 
 
 def phase_main_path(device, NB, card):
@@ -1357,6 +1437,254 @@ def phase_new_card_vs_cpu(device, card, N2=64, N3=16, N3f=4):
         fail('card and CPU disagree on the 3-D faithful route')
 
 
+# -----------------------------------------------------------------
+# the SVC feature layouts beyond 6-D stress (phases 13a-13e)
+# -----------------------------------------------------------------
+def fixture(name, dtype, device):
+    """(DeviceMaterial, CV, eps) of a trained fixture of ``DATA``."""
+    from pylabfea_tpu_torch import convert
+    return convert.material_from_npz(os.path.join(DATA, name + '.npz'),
+                                     dtype=dtype, device=device)
+
+
+def by_width():
+    """Every SVC kernel's launches by feature count since the last reset."""
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    return {k.__name__: dict(k.launches_by_nfeat) for k in sk.KERNELS}
+
+
+def layout_steps(md, mat, CV, dtype, n_timed, device):
+    """``run_steps`` with the hardening modulus (``khard_of``, the batch
+    mean for work-hardening features) of each step's committed state:
+    (state, diag, seconds of the timed steps, cg histories, launches by
+    width, khards).  The counts are read before the khards, whose
+    evaluation launches kernel A."""
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    from pylabfea_tpu_torch.ops import jtensors as jt
+    st = fek.init_state(md, CV, dtype=dtype)
+    states, times, iters, d = [], [], [], None
+    for k in range(n_timed + 1):
+        warm = {} if d is None else dict(du0=d['du'], kes0=d['kes'],
+                                         dst0=d['dstiff'])
+        sync(device)
+        t0 = time.perf_counter()
+        st, d = fek.load_step_split(md, st, mat, CV, 0.25, n_inner=2, **warm)
+        sync(device)
+        if k:
+            times.append(time.perf_counter() - t0)
+        iters.append([int(i) for i in d['cg_iters_hist']])
+        states.append(st)
+    widths = by_width()
+    khards = [float(con.yf_and_fgrad(mat, s.sig, jt.eps_eq(s.epl),
+                                     s.epl)[2]) for s in states]
+    return st, d, times, iters, widths, khards
+
+
+def phase_layout_path(device, name, NB, card, tag):
+    """Phase 5's main path (NB x NB quads, uniaxial y, eps 0.002 in steps
+    of 0.25, ``load_step_split(n_inner=2)``, float32: one untimed step,
+    two timed warm-started ones) with a trained fixture of another feature
+    layout, which must launch kernel A at its feature count and end with
+    finite fields and an axial stress in (0.5 sy, 2 sy)."""
+    import torch
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    mat, CV, eps = fixture(name, torch.float32, device)
+    F = mat.sv.shape[1]
+    md = fek.rect_mesh(NB, NB, LX=1., LY=1., uniax='y', eps_tot=eps,
+                       dtype=torch.float32, device=device)
+    reset_counts()
+    st, d, times, iters, widths, khards = layout_steps(
+        md, mat, CV, torch.float32, 2, device)
+    gsig = d['glob_sig'].double().cpu().numpy()
+    fin = finite(st.u, st.sig, st.epl, st.eps, st.elstiff, d['glob_sig'])
+    nA = widths['svc_f_grad'].get(F, 0)
+    ok = fin and nA > 0 and 0.5 * mat.sy < gsig[1] < 2. * mat.sy
+    log(f'[{tag}] {NB}x{NB} load_step_split(0.25, n_inner=2), {name} '
+        f'(F={F}, nsv={mat.sv.shape[0]}, sy {mat.sy:g}), f32: step_s '
+        f'{times[0]:.4f}, step_s_rep {times[1]:.4f}; cg_iters_hist {iters}; '
+        f'khard_of the steps {[f"{k:.6g}" for k in khards]}; glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; '
+        f'launches by feature count {widths}; plastic elements '
+        f'{int((st.epl.abs().sum(-1) > 0).sum())}; finite {fin} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail(f'{name} main path: non-finite fields, kernel A not launched at '
+             f'F={F} or axial stress {gsig[1]} outside (0.5 sy, 2 sy)')
+    return dict(step_s=times, launches=widths, F=F)
+
+
+def cyl_faithful(N, dtype, device):
+    """The REF_SOLVE protocol (``solve_uniaxial(nsteps=8, n_inner=2, gate,
+    nsub=4, commit_faithful)``) on an N x N mesh with the cylindrical
+    fixture; its gate does not fire with this material (every step runs
+    its 16 rounds and warns, in the JAX package as here), so the warnings
+    are counted, not shown.  Returns (state, history, warnings)."""
+    import warnings
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    mat, CV, eps = fixture('svc_cyl', dtype, device)
+    md = fek.rect_mesh(N, N, LX=2., LY=2., uniax='y', eps_tot=eps,
+                       dtype=dtype, device=device)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        st, hist = fek.solve_uniaxial(md, mat, CV, nsteps=8, n_inner=2,
+                                      dtype=dtype, gate=True, nsub=4,
+                                      commit_faithful=True)
+    sync(device)
+    return st, hist, len(caught)
+
+
+def phase_cyl_faithful(device, N, card):
+    """Phase 9's solve at N x N in float32 with the cylindrical fixture:
+    kernels D, E and G launched at F = 2, F not at all."""
+    import torch
+    reset_counts()
+    t0 = time.perf_counter()
+    st, hist, nwarn = cyl_faithful(N, torch.float32, device)
+    dt = time.perf_counter() - t0
+    widths = by_width()
+    launches = {c.__name__: c.launches for c in counters()}
+    gsig = hist[-1][0].double().cpu().numpy()
+    ok = (finite(st.u, st.sig, st.epl) and launches['brent_step'] == 0
+          and all(widths[k].get(2, 0) > 0 for k in
+                  ('svc_decision', 'svc_f_grad_mm', 'svc_yf_root')))
+    log(f'[13c cylindrical faithful] {N}x{N} solve_uniaxial(nsteps=8, '
+        f'n_inner=2, gate, nsub=4, commit_faithful), svc_cyl, f32: {dt:.3f} '
+        f's; {nwarn} no-convergence warnings; glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; '
+        f'launches {launches}, by feature count {widths} (D, E, G at F=2, '
+        f'F not: {ok})  [{card}]')
+    if not ok:
+        fail('cylindrical faithful solve: non-finite fields, kernels D/E/G '
+             'not launched at F=2 or kernel F launched')
+    return dict(seconds=dt, launches=widths)
+
+
+def lanes_vs_cpu(out, ref, idx):
+    """Phase 4's float32 rule on the lanes ``idx`` of the card's outputs
+    against the CPU's: per lane the same outputs finite, each finite one
+    within 1e-3 of that output's scale.  Returns (agreeing lanes, max rel
+    error per output)."""
+    import torch
+    agree = np.ones(len(idx), dtype=bool)
+    errs = []
+    for o, r in zip(out, ref):
+        a = o[idx].cpu().double().reshape(len(idx), -1)
+        b = r.double().reshape(len(idx), -1)
+        fa, fb = torch.isfinite(a), torch.isfinite(b)
+        scale = max(float(b[fb].abs().max()), 1e-300)
+        d = torch.where(fa & fb, (a - b).abs(), 0.).max(-1).values / scale
+        agree &= ((fa == fb).all(-1) & (d <= 1e-3)).numpy()
+        errs.append(float(d.max()))
+    return int(agree.sum()), errs
+
+
+def phase_texture(device, N, NG, card):
+    """The GSH_3 texture fixture (F = 9, the kernels' runtime-F form):
+    ``response_fast`` on N states (kernels A and D) and ``ml_yf_dist`` on
+    NG stresses at 0.3-2 sy (kernel G), float32, finite, 64 lanes of each
+    against the CPU under phase 4's rule (at most 1e-3 of the lanes
+    non-finite, 48 of 64 within 1e-3)."""
+    import torch
+    from pylabfea_tpu_torch.ops import constitutive as con
+    cpu, f32 = torch.device('cpu'), torch.float32
+    res = {}
+    for dev in (device, cpu):
+        mat, CV, _ = fixture('svc_tex_gsh3', f32, dev)
+        res[dev.type] = mat, torch.as_tensor(CV, dtype=f32, device=dev)
+    mat, CV = res[device.type]
+    F = mat.sv.shape[1]
+    sig_np, deps_np = return_map_states(N, sy=mat.sy)
+    sig = torch.as_tensor(sig_np, dtype=f32, device=device)
+    deps = torch.as_tensor(deps_np, dtype=f32, device=device)
+    rng = np.random.default_rng(4)
+    u = rng.normal(size=(NG, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sg_np = u * mat.sy * rng.uniform(0.3, 2.0, (NG, 1))
+    sg = torch.as_tensor(sg_np, dtype=f32, device=device)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = con.response_fast(mat, (sig, torch.zeros_like(sig)), deps, CV, 12)
+    sync(device)
+    t1 = time.perf_counter()
+    dist = con.ml_yf_dist(mat, sg, torch.zeros(NG, dtype=f32, device=device))
+    sync(device)
+    t2 = time.perf_counter()
+    widths = by_width()
+    pick = np.random.default_rng(5).choice(N, 64, replace=False)
+    mc, CVc = res['cpu']
+    ref = con.response_fast(mc, (torch.as_tensor(sig_np[pick], dtype=f32),
+                                 torch.zeros(64, 6)),
+                            torch.as_tensor(deps_np[pick], dtype=f32), CVc,
+                            12)
+    na, ea = lanes_vs_cpu(out, ref, pick)
+    gpick = np.random.default_rng(6).choice(NG, 64, replace=False)
+    gref = con.ml_yf_dist(mc, torch.as_tensor(sg_np[gpick], dtype=f32),
+                          torch.zeros(64))
+    ng, eg = lanes_vs_cpu((dist,), (gref,), gpick)
+    nbad = sum(int((~torch.isfinite(o.reshape(o.shape[0], -1))).any(-1)
+                   .sum()) for o in out)
+    nbad_g = int((~torch.isfinite(dist)).sum())
+    ok = (nbad <= 1e-3 * N and nbad_g <= 1e-3 * NG and na >= 48
+          and ng >= 48 and all(widths[k].get(F, 0) > 0 for k in
+                               ('svc_f_grad', 'svc_decision', 'svc_yf_root')))
+    log(f'[13d texture] svc_tex_gsh3 (F={F}, nsv={mat.sv.shape[0]}), f32: '
+        f'response_fast N={N} {(t1 - t0) * 1e3:.2f} ms, plastic lanes '
+        f'{int((out[2].abs().sum(-1) > 0).sum())}, non-finite lanes {nbad}; '
+        f'ml_yf_dist N={NG} {(t2 - t1) * 1e3:.2f} ms, non-finite {nbad_g}; '
+        f'vs the CPU on 64 lanes: response_fast {na} agree (max rel err of '
+        f'f, sig, depl, tangent {", ".join(f"{e:.2e}" for e in ea)}), '
+        f'ml_yf_dist {ng} agree (max rel err {eg[0]:.2e}) (bounds: 48 of '
+        f'64 within 1e-3, non-finite at most 1e-3 of the lanes); launches '
+        f'by feature count {widths} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('texture layout: non-finite share, CPU agreement or kernels '
+             f'A/D/G not launched at F={F}')
+    return dict(launches=widths, F=F)
+
+
+def phase_layouts_card_vs_cpu(device, card, NB=64, NF=8):
+    """Float64 card against CPU: the work-hardening and the cylindrical
+    fixtures through phase 13a's three steps at NB x NB (glob_sig within
+    1e-9 relative, the same CG histories), and the cylindrical faithful
+    solve at NF x NF (1e-6, phase 9's bound for a flipped Brent
+    iterate)."""
+    import torch
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    cpu, f64 = torch.device('cpu'), torch.float64
+    for name in ('svc_wh', 'svc_cyl'):
+        res = {}
+        for dev in (device, cpu):
+            mat, CV, eps = fixture(name, f64, dev)
+            md = fek.rect_mesh(NB, NB, LX=1., LY=1., uniax='y', eps_tot=eps,
+                               dtype=f64, device=dev)
+            st, d, _, iters, _, khards = layout_steps(md, mat, CV, f64, 2,
+                                                      dev)
+            res[dev.type] = (d['glob_sig'].cpu(), iters, khards)
+        (ga, ia, ka), (gb, ib, kb) = res[device.type], res['cpu']
+        eg = float((ga - gb).abs().max() / gb.abs().max())
+        ok = eg <= 1e-9 and ia == ib
+        log(f'[13e card vs cpu] {name} {NB}x{NB} three 0.25 steps float64: '
+            f'glob_sig rel {eg:.2e} (bound 1e-9); cg_iters_hist card {ia} '
+            f'cpu {ib}; khard_of card {[f"{k:.4f}" for k in ka]} cpu '
+            f'{[f"{k:.4f}" for k in kb]} {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail(f'card and CPU disagree on the {name} steps')
+    reset_counts()
+    sa, ha, _ = cyl_faithful(NF, f64, device)
+    widths = by_width()
+    sb, hb, _ = cyl_faithful(NF, f64, cpu)
+    ga, gb = ha[-1][0].cpu(), hb[-1][0]
+    eg = float((ga - gb).abs().max() / gb.abs().max())
+    ok = eg <= 1e-6 and widths['svc_yf_root'].get(2, 0) > 0
+    log(f'[13e card vs cpu] cylindrical faithful solve {NF}x{NF} float64: '
+        f'glob_sig rel {eg:.2e} (bound 1e-6); launches on the card by '
+        f'feature count {widths} {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('card and CPU disagree on the cylindrical faithful solve')
+
+
 def check_svc_mm_forms(device, params, card):
     """Kernel E at one N in each of its launch forms (a group of GT = 8,
     16 and 32 threads a point; P = 1, 2 and 4 points a thread) in float32,
@@ -1451,6 +1779,31 @@ def main():
     eg = [check_yf_root(device, 1024, trained_mat, 20, card, 'trained'),
           check_yf_root(device, FAITHFUL_N, synthetic_mat, 5, card,
                         'synthetic')]
+    # the other feature layouts, each at the shapes its phase-13 path
+    # gives the kernels first (the trained fixtures; A and D at 2^20
+    # points, E at the 16^2 solve's 256, G at its 256 lanes and the
+    # texture distances' 2^16), then A, D and E at F = 2, 9 and 15 on
+    # 2^20+17 points x 512 synthetic SVs
+    wide = {}
+    for F, name, ne, ng in ((2, 'svc_cyl', 256, 256),
+                            (9, 'svc_tex_gsh3', None, 2 ** 16),
+                            (15, 'svc_wh', None, 1024)):
+        z = np.load(os.path.join(DATA, name + '.npz'))
+        fix = dict(sv=z['sv'], dc=z['dc'], gamma=float(z['gamma']),
+                   rho=float(z['rho']))
+        syn = synthetic_svc(nfeat=F)
+        wide[F] = dict(
+            A=[check_svc(device, 2 ** 20, fix, 10, card, n_ref=2 ** 18),
+               check_svc(device, 2 ** 20 + 17, syn, 10, card)],
+            D=[check_svc_mm(device, 2 ** 20, fix, 10, card, 'D',
+                            n_ref=2 ** 18),
+               check_svc_mm(device, 2 ** 20 + 17, syn, 10, card, 'D')],
+            E=([check_svc_mm(device, ne, fix, 200, card, 'E')]
+               if ne else [])
+            + [check_svc_mm(device, 2 ** 20 + 17, syn, 10, card, 'E')],
+            G=[check_yf_root(device, ng,
+                             lambda dt, n=name: fixture(n, dt, device)[0],
+                             20, card, name)])
     phase_return_map(device, 2 ** 20, 3, card)
     phase_faithful_map(device, FAITHFUL_N, torch.float64, card)
     phase_faithful_map(device, 2 ** 20, torch.float32, card)
@@ -1470,10 +1823,16 @@ def main():
     phase_box_inclusion(device, 64, card)
     phase_faithful3(device, 8, card)
     phase_new_card_vs_cpu(device, card)
+    wh = phase_layout_path(device, 'svc_wh', 1024, card, '13a work hardening')
+    cyl = phase_layout_path(device, 'svc_cyl', 1024, card, '13b cylindrical')
+    cylf = phase_cyl_faithful(device, 16, card)
+    tex = phase_texture(device, 2 ** 20, 2 ** 16, card)
+    phase_layouts_card_vs_cpu(device, card)
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions
-        err, ms, pms, (bms, by) = max(c[0] for c in checks), *checks[0][1:]
+        err = max(c[0] for c in checks)
+        ms, pms, (bms, by) = checks[0][1:]
         return dict(name=name, route='cuda',
                     source=f'pylabfea_tpu_torch/csrc/{src}',
                     replaces=f'pylabfea_tpu/ops/{replaces}',
@@ -1501,6 +1860,28 @@ def main():
               'pallas_kernels.py:72 + pylabfea_tpu/ops/rootfind.py:139',
               ref32['svc_yf_root'], eg),
     ]
+    # the other feature layouts, each width where a path launched it: A
+    # and D in the work-hardening (F = 15) and cylindrical (F = 2) 1024^2
+    # steps and the texture return map (F = 9), E and G in the cylindrical
+    # faithful solve (F = 2), G in the texture distances (F = 9)
+    sources = dict(svc_f_grad=('A', 'svc_fgrad.cu', 'pallas_kernels.py:231'),
+                   svc_decision=('D', 'svc_decision.cu',
+                                 'pallas_kernels.py:72'),
+                   svc_f_grad_mm=('E', 'svc_fgrad_mm.cu',
+                                  'pallas_kernels.py:170'),
+                   svc_yf_root=('G', 'yf_root.cu', 'pallas_kernels.py:72 + '
+                                'pylabfea_tpu/ops/rootfind.py:139'))
+    listed = set()
+    for run in (wh, cyl, tex, cylf):
+        for name, widths in run['launches'].items():
+            for F, n in sorted(widths.items()):
+                letter, src, repl = sources[name]
+                if (name, F) in listed or F == 6 or not n \
+                        or letter not in wide.get(F, {}):
+                    continue
+                listed.add((name, F))
+                kernels.append(entry(f'{name}[F={F}]', src, repl, n,
+                                     wide[F][letter]))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -18,11 +18,13 @@ base, ...), so that a drift of the card falls on both.
   1024 x 135; E also at N x 135 on each side of every switch of its launch
   form (a group of GT = 32, 16, 8 threads a point up to sm_count * 64
   points, then P = 1, 2, 4 points a thread); kernel C (``k_apply3``) at
-  128^3, 40x24x72 and 67x29x93 in float32 and 16^3 in float64; on inputs
-  made from seeds.  Every output of every run is compared bit for bit
-  with the base's first run; each run also times A, E and C in float32
-  (CUDA events; E at 1024 x 135 also a launch in a CUDA graph,
-  ``chip_smoke.graph_ms``) and E at 2^18 x 512 in float64.
+  128^3, 40x24x72 and 67x29x93 in float32 and 16^3 in float64; kernel
+  G through ``constitutive.ml_yf_dist`` (the distances) on 1024
+  stresses with the trained SVC and 2^16 with the synthetic one, float32
+  and float64; on inputs made from seeds.  Every output of every run is
+  compared bit for bit with the base's first run; each run also times A,
+  E and C in float32 (CUDA events; E at 1024 x 135 also a launch in a
+  CUDA graph, ``chip_smoke.graph_ms``) and E at 2^18 x 512 in float64.
 * steps (``--pairs`` pairs): ``chip_smoke.phase_main_path`` at 1024^2
   (``step_s``, ``step_s_rep``) and the timed warm 0.3 step of the 128^3
   3-D path (``step_s_128cubed``, ``chip_smoke.run_steps3``).
@@ -88,9 +90,36 @@ def e_cases(sms):
     return cases
 
 
+def g_bits(dev):
+    """Kernel G's outputs through ``ml_yf_dist``: {key: distance} on
+    seeded stresses at 0.3-2 sy, both SVCs, float32 and float64."""
+    import chip_smoke
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import constitutive as con
+    outs = {}
+    for kind, n in (('trained', 1024), ('synthetic', 2 ** 16)):
+        rng = np.random.default_rng(4)
+        u = rng.normal(size=(n, 6))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        sig = u * chip_smoke.SY * rng.uniform(0.3, 2.0, (n, 1))
+        for dt in (torch.float32, torch.float64):
+            if kind == 'trained':
+                mat = convert.material_from_npz(chip_smoke.NPZ, dtype=dt,
+                                                device=dev)[0]
+            else:
+                mat = convert.material_from_params(
+                    chip_smoke.synthetic_svc(), is_svc=True, dtype=dt,
+                    device=dev)
+            d = con.ml_yf_dist(mat, torch.as_tensor(sig, dtype=dt,
+                                                    device=dev),
+                               torch.zeros(n, dtype=dt, device=dev))
+            outs[f'G {n} x {kind} {str(dt)[6:]} distance'] = d.cpu()
+    return outs
+
+
 def bits_worker(out_file):
-    """Run in a checkout: its kernels A, D, E and C on the seeded inputs;
-    saves the outputs and the times (ms) to ``out_file``."""
+    """Run in a checkout: its kernels A, D, E, G and C on the seeded
+    inputs; saves the outputs and the times (ms) to ``out_file``."""
     import chip_smoke
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     from pylabfea_tpu_torch.ops import volume
@@ -147,6 +176,7 @@ def bits_worker(out_file):
         if shape == (128, 128, 128):
             ms[f'C {key[2:]}'] = chip_smoke.timed_ms(
                 lambda: volume.k_apply3(Cp, *u, *h), 20)
+    outs.update(g_bits(dev))
     torch.save(dict(outs=outs, ms=ms), out_file)
 
 

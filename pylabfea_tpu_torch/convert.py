@@ -3,11 +3,15 @@
 The JAX package's device pytrees (``DeviceMaterial``, ``MeshData``,
 ``MeshData3D``, ``SolverState``, ``SolverState3``) cross over as dicts of
 numpy arrays plus their static fields, so the port never imports JAX;
-``material_from_npz`` reads a trained SVC yield function saved as ``.npz``
-(the ``REF_SOLVE_svc.npz`` layout: support_vectors, dual_coef, intercept,
-gamma, scale_seq, sy, CV, dev_only, eps).  A multi-material model
-crosses as a tuple of materials (``materials_from_params``) beside its
-tuple of elastic stiffnesses, which the solvers take as numpy arrays.
+``material_from_npz`` reads a trained SVC yield function saved as ``.npz``:
+the ``REF_SOLVE_svc.npz`` layout (support_vectors, dual_coef, intercept,
+gamma, scale_seq, sy, CV, dev_only, eps), or every ``DeviceMaterial``
+leaf under its own name with the static flags, CV and eps (the fixtures
+under ``pylabfea_tpu_torch/data/``, which
+``tools/make_torch_svc_fixtures.py`` trains with the JAX package).  A
+multi-material model crosses as a tuple of materials
+(``materials_from_params``) beside its tuple of elastic stiffnesses,
+which the solvers take as numpy arrays.
 Every function builds on the card unless ``device`` names another device.
 """
 import numpy as np
@@ -31,22 +35,14 @@ def material_from_params(params, is_svc, dev_only=False, sdim3=False,
     and the dummy SVC leaves; a truthy ``tresca`` key or a ``barlat`` or
     ``lhs`` key other than None/False marks criteria that have no device
     form.  ``sdim3`` (the Hill quadratic on principal stresses) applies to
-    analytic materials."""
+    analytic materials; SVC materials take their feature layout from the
+    shapes of ``sv`` and ``tex``."""
     if not is_svc:
         params = {'sv': np.zeros((1, 6)), 'dc': np.zeros(1), 'rho': 0.,
                   'gamma': 1., 'scale_seq': params['sy'], **params}
     sv = np.asarray(params['sv'])
     if is_svc:
-        if sdim3:
-            raise NotImplementedError('sdim=3 SVC features (cylindrical) '
-                                      'are not ported yet')
-        if sv.ndim != 2 or sv.shape[1] != 6:
-            raise NotImplementedError('only 6-D stress SVC features are '
-                                      f'ported (got sv {sv.shape})')
-        if any(np.size(params.get(k, ())) for k in ('feat_mean',
-                                                     'feat_scale', 'tex')):
-            raise NotImplementedError('texture-conditioned SVC features are '
-                                      'not ported yet')
+        _check_svc_layout(sv, params)
     elif bool(params.get('tresca')) or any(
             params.get(k) is not None and params.get(k) is not False
             for k in ('barlat', 'lhs')):
@@ -66,7 +62,27 @@ def material_from_params(params, is_svc, dev_only=False, sdim3=False,
         rho=num('rho'), gamma=num('gamma'), scale_seq=num('scale_seq'),
         scale_wh=num('scale_wh', 1.), voce_r=num('voce_r', 0.),
         voce_b=num('voce_b', 1.), is_svc=bool(is_svc),
-        dev_only=bool(dev_only), sdim3=bool(sdim3))
+        dev_only=bool(dev_only), sdim3=bool(sdim3),
+        **{k: ten(np.ravel(params.get(k, np.zeros(0))))
+           for k in ('feat_mean', 'feat_scale', 'tex')})
+
+
+def _check_svc_layout(sv, params):
+    """Raise for SVC features the JAX device path does not serve: 2
+    (cylindrical), 6 (stress) and 15 (stress + work hardening) features,
+    or with a texture descriptor of tdim values 6 + tdim or 15 + tdim,
+    with a StandardScaler of as many."""
+    tdim = np.size(params.get('tex', ()))
+    nf = sv.shape[1] if sv.ndim == 2 else -1
+    ok = nf in (2, 6, 15) if tdim == 0 else (
+        nf in (6 + tdim, 15 + tdim)
+        and np.size(params.get('feat_mean', ())) == nf
+        and np.size(params.get('feat_scale', ())) == nf)
+    if not ok:
+        raise NotImplementedError(
+            'device constitutive path supports cylindrical (Ndof=2), '
+            'stress-only (Ndof=6), stress + work-hardening (Ndof=15) '
+            f'or texture-scaled SVC features; got Ndof={nf}')
 
 
 #: yield strength of a purely elastic material: far above any physical
@@ -123,16 +139,24 @@ def materials_from_params(items, dtype=DTYPE_DEVICE, device=None):
 
 def material_from_npz(path, dtype=DTYPE_DEVICE, device=None):
     """The trained SVC material of an ``.npz`` file, uncompressed (every
-    support vector kept).  Returns (DeviceMaterial, CV (6, 6) float64
-    numpy, total strain ``eps`` of the workload)."""
+    support vector kept), in either layout of the module docstring.
+    Returns (DeviceMaterial, CV (6, 6) float64 numpy, total strain ``eps``
+    of the workload)."""
     with np.load(path) as z:
-        sy = float(z['sy'])
-        params = dict(hill=np.ones(6), sy=sy, khard=0., drucker=0.,
-                      sv=z['support_vectors'], dc=z['dual_coef'],
-                      rho=float(z['intercept']), gamma=float(z['gamma']),
-                      scale_seq=float(z['scale_seq']))
-        mat = material_from_params(params, is_svc=True,
-                                   dev_only=bool(z['dev_only']), dtype=dtype,
+        if 'sv' in z.files:
+            params = {k: z[k] for k in z.files
+                      if k not in ('is_svc', 'dev_only', 'sdim3', 'CV', 'eps',
+                                   'tex_raw')}
+            flags = dict(is_svc=bool(z['is_svc']),
+                         dev_only=bool(z['dev_only']), sdim3=bool(z['sdim3']))
+        else:
+            params = dict(hill=np.ones(6), sy=float(z['sy']), khard=0.,
+                          drucker=0., sv=z['support_vectors'],
+                          dc=z['dual_coef'], rho=float(z['intercept']),
+                          gamma=float(z['gamma']),
+                          scale_seq=float(z['scale_seq']))
+            flags = dict(is_svc=True, dev_only=bool(z['dev_only']))
+        mat = material_from_params(params, **flags, dtype=dtype,
                                    device=device)
         return mat, np.asarray(z['CV'], dtype=np.float64), float(z['eps'])
 

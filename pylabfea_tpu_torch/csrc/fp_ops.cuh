@@ -43,4 +43,7 @@ __device__ __forceinline__ double div_rn(double a, double b) {
   return __ddiv_rn(a, b);
 }
 
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
 }  // namespace pylabfea

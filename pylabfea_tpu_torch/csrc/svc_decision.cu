@@ -12,7 +12,7 @@
 // What bounds it: per point-SV pair 2F + 7 float32 operations (F FMAs of
 // the cross term, an add and an FMA of the distance, the gamma product, the
 // exponential, an FMA into the sum) against F + 1 values moved per point:
-// compute-bound.  At 2^20 points x 512 SVs the flop bound is 0.152 ms
+// compute-bound, at every feature count.  At 2^20 points x 512 SVs the flop bound is 0.152 ms
 // (H100 SXM data sheet at its 700 W limit: 67 TFLOP/s float32); the SFU
 // ceiling beside it, one ex2 per pair at 16 per clock per SM (132 SMs at
 // 1.98 GHz), is 0.129 ms, and expf adds its range reduction to the FP32
@@ -20,46 +20,46 @@
 // device memory; this kernel writes none.
 //
 // Design: a thread owns P points (P = 4, 2 or 1, chosen at launch so that
-// the grid still fills the card), their features and |x|^2 in registers;
-// the block stages packed SV records in shared memory (svc_eval.cuh) and
-// every record loaded serves P points.  Every thread of a warp reads the
-// same record: a broadcast.  The kernel allocates nothing and launches on
-// the caller's stream.
+// the grid still fills the card; 1 when F is a launch argument), their
+// features and |x|^2 in registers; the block stages packed SV records in
+// shared memory (svc_eval.cuh) and every record loaded serves P points.
+// Every thread of a warp reads the same record: a broadcast.  Any F from 1
+// to SVC_MAX_NFEAT (svc_eval.cuh's feature policies).  The kernel
+// allocates nothing and launches on the caller's stream.
 #include <cuda_runtime.h>
 
 #include "svc_eval.cuh"
 
 namespace {
 
-using pylabfea::SVC_NFEAT;
-using pylabfea::SVC_STAGE;
-using pylabfea::SvcRecord;
+using pylabfea::for_features;
+using pylabfea::SVC_STAGE_VALUES;
 
 constexpr int THREADS = 256;
 
-template <typename T, int P>
+template <typename T, class FM, int P>
 __global__ void __launch_bounds__(THREADS)
 svc_decision_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                     const T* __restrict__ dc, long long n, int nsv, T gamma,
-                    T rho, T* __restrict__ f) {
-  __shared__ SvcRecord<T> rec[SVC_STAGE];
+                    T rho, T* __restrict__ f, FM fm) {
+  __shared__ __align__(16) T buf[SVC_STAGE_VALUES];
+  const int nf = fm.n();
+  const int stage = pylabfea::svc_stage_records(fm);
   const long long base = (long long)blockIdx.x * (THREADS * P) + threadIdx.x;
-  T xr[P][SVC_NFEAT], x2[P], acc[P];
+  T xr[P][FM::CAP], x2[P], acc[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const long long i = base + (long long)p * THREADS;
-#pragma unroll
-    for (int k = 0; k < SVC_NFEAT; ++k)
-      xr[p][k] = i < n ? x[i * SVC_NFEAT + k] : T(0);
-    x2[p] = pylabfea::svc_norm2(xr[p]);
+    for_features(fm, [&](int k) { xr[p][k] = i < n ? x[i * nf + k] : T(0); });
+    x2[p] = pylabfea::svc_norm2(xr[p], fm);
     acc[p] = T(0);
   }
-  for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
-    const int m = min(SVC_STAGE, nsv - s0);
+  for (int s0 = 0; s0 < nsv; s0 += stage) {
+    const int m = min(stage, nsv - s0);
     __syncthreads();  // previous chunk fully consumed
-    pylabfea::svc_stage(rec, sv, dc, s0, m);
+    pylabfea::svc_stage(buf, fm, sv, dc, s0, m);
     __syncthreads();
-    pylabfea::svc_accumulate<T, P>(rec, m, xr, x2, gamma, acc);
+    pylabfea::svc_accumulate<T, FM, P>(buf, m, fm, xr, x2, gamma, acc);
   }
 #pragma unroll
   for (int p = 0; p < P; ++p) {
@@ -68,29 +68,36 @@ svc_decision_kernel(const T* __restrict__ x, const T* __restrict__ sv,
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, class FM>
 void launch_p(const T* x, const T* sv, const T* dc, long long n, int nsv,
-              T gamma, T rho, T* f, cudaStream_t stream) {
+              T gamma, T rho, T* f, FM fm, cudaStream_t stream) {
   const long long per_block = (long long)THREADS * P;
   const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
-  svc_decision_kernel<T, P><<<blocks, THREADS, 0, stream>>>(x, sv, dc, n, nsv,
-                                                            gamma, rho, f);
+  svc_decision_kernel<T, FM, P><<<blocks, THREADS, 0, stream>>>(
+      x, sv, dc, n, nsv, gamma, rho, f, fm);
 }
 
 template <typename T>
 int launch(const T* x, const T* sv, const T* dc, long long n, int nsv,
            int nfeat, T gamma, T rho, T* f, void* stream) {
-  if (nfeat != SVC_NFEAT || n <= 0 || nsv <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (n <= 0 || nsv <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   // P points a thread while the threads still number at least 1024 per SM
   const long long fill = (long long)pylabfea::sm_count() * 1024;
-  if (n >= 4 * fill)
-    launch_p<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, s);
-  else if (n >= 2 * fill)
-    launch_p<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, s);
-  else
-    launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, s);
+  const bool ok = pylabfea::with_features(nfeat, [&](auto fm) {
+    using FM = decltype(fm);
+    if constexpr (FM::FIXED) {
+      if (n >= 4 * fill)
+        launch_p<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, fm, s);
+      else if (n >= 2 * fill)
+        launch_p<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, fm, s);
+      else
+        launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, fm, s);
+    } else {
+      launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, fm, s);
+    }
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

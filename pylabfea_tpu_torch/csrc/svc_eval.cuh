@@ -5,15 +5,33 @@
 // the formula of pylabfea_tpu/ops/pallas_kernels.py _kernel, shared by
 // kernel D (svc_decision.cu: f at N points) and kernel G (yf_root.cu: f at
 // every marching and Brent abscissa of a per-lane root find), and its
-// terms, staging and records for kernel E (svc_fgrad_mm.cu: f and its
-// gradient, with E's own fold of a pair, svc_grad_fold).
+// terms, staging and records for kernels A (svc_fgrad.cu) and E
+// (svc_fgrad_mm.cu: f and its gradient, with E's own fold of a pair,
+// svc_grad_fold).
 //
-// Support vectors are staged in shared memory as packed 8-value records
-// [sv_0 .. sv_5, |sv|^2, dc], SVC_STAGE of them at a time (16 KB in float32,
-// 32 KB in float64; larger sets are staged in chunks, so the SV count is
-// unlimited).  One record costs two 128-bit shared loads in float32 (four
-// in float64) and serves every point a thread owns.  The staging block
-// computes |sv|^2 itself, so no caller keeps a per-material cache.
+// Feature counts.  A point has F features, 1 <= F <= SVC_MAX_NFEAT: 2 for
+// the cylindrical layout (seq/scale - 1, theta/pi), 6 for 6-D stress, 15
+// for stress + work hardening, 6 + tdim or 15 + tdim with a texture
+// descriptor.  A kernel is a template on the feature policy FM: FixedF<F>
+// for F = 2, 6 and 15 (every loop over the features unrolled, no
+// predicate, a record in registers), RegF for any other F up to 32 (F a
+// launch argument; loops unrolled over 32 in groups of 4 that stop after
+// F, so a point's features stay in registers, and a record read from
+// shared memory as the loops need it) and WideF up to SVC_MAX_NFEAT
+// (loops of F trips, a point's arrays in local memory).  A loop over the
+// features runs k = 0 .. F - 1 in order in every form (for_features), so
+// the form changes no bit.
+//
+// Support vectors are staged in shared memory as packed records
+// [sv_0 .. sv_{F-1}, |sv|^2, dc], svc_rstride(F) values each (F + 2
+// rounded up to a multiple of 4: 8 for F = 6, 4 for F = 2, 20 for F =
+// 15), SVC_STAGE_VALUES values at a time (16 KB in float32, 32 KB in
+// float64; 512 records of 6 features, 204 of 15, fewer as F grows; larger
+// sets are staged in chunks, so the SV count is unlimited).  With F fixed
+// one record costs svc_rstride(F) / 4 128-bit shared loads in float32
+// (twice as many in float64) and serves every point a thread owns.  The
+// staging block computes |sv|^2 itself, so no caller keeps a per-material
+// cache.
 //
 // Every point's sum runs over the records in order, one FMA a record, so
 // every kernel on this body gives the same bits for the same features.
@@ -35,14 +53,95 @@
 
 namespace pylabfea {
 
-// features per point (6-D stress features)
-constexpr int SVC_NFEAT = 6;
-// support-vector records staged in shared memory at a time
-constexpr int SVC_STAGE = 512;
+// the most features a point may have (svc_kernels.MAX_NFEAT)
+constexpr int SVC_MAX_NFEAT = 256;
+// the values of support-vector records staged in shared memory at a time
+// (512 records of 6 features)
+constexpr int SVC_STAGE_VALUES = 4096;
 
-template <typename T>
-struct alignas(8 * sizeof(T)) SvcRecord {
-  T v[8];  // sv_0 .. sv_5, |sv|^2, dc
+// The values of one record of F features: F + 2 rounded up to a multiple
+// of 4, so that every record starts on a 16-byte boundary.
+__host__ __device__ constexpr int svc_rstride(int nf) {
+  return (nf + 2 + 3) / 4 * 4;
+}
+
+// Feature policies: CAP is the capacity of a point's feature arrays.
+// FIXED: F is a compile-time constant; UNROLLED: the loops over the
+// features are unrolled over CAP (so the arrays stay in registers).
+template <int F>
+struct FixedF {
+  static constexpr int CAP = F;
+  static constexpr bool UNROLLED = true;
+  static constexpr bool FIXED = true;
+  __host__ __device__ constexpr int n() const { return F; }
+};
+
+template <int CAP_, bool UNROLLED_>
+struct RuntimeF {
+  static constexpr int CAP = CAP_;
+  static constexpr bool UNROLLED = UNROLLED_;
+  static constexpr bool FIXED = false;
+  int nf;
+  __host__ __device__ int n() const { return nf; }
+};
+using RegF = RuntimeF<32, true>;
+using WideF = RuntimeF<SVC_MAX_NFEAT, false>;
+
+// body(k) for k = 0 .. F - 1, in order: fully unrolled with F fixed; with
+// RegF unrolled over CAP in groups of 4 that stop after the group holding
+// F - 1 (a branch every 4 features, uniform over the warp, and k < F as a
+// predicate inside the last group); with WideF a loop of F trips.
+template <class FM, class Body>
+__device__ __forceinline__ void for_features(const FM& fm, Body&& body) {
+  if constexpr (FM::FIXED) {
+#pragma unroll
+    for (int k = 0; k < FM::CAP; ++k) body(k);
+  } else if constexpr (FM::UNROLLED) {
+    const int nf = fm.n();
+#pragma unroll
+    for (int k0 = 0; k0 < FM::CAP; k0 += 4) {
+      if (k0 >= nf) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (k0 + j < nf) body(k0 + j);
+    }
+  } else {
+    for (int k = 0; k < fm.n(); ++k) body(k);
+  }
+}
+
+// Call body(fm) with the policy for nfeat features: FixedF for 2, 6 and
+// 15, else RegF or WideF.  Returns false for a count out of range.
+template <class Body>
+inline bool with_features(int nfeat, Body&& body) {
+  switch (nfeat) {
+    case 2: body(FixedF<2>{}); return true;
+    case 6: body(FixedF<6>{}); return true;
+    case 15: body(FixedF<15>{}); return true;
+    default:
+      if (nfeat < 1 || nfeat > SVC_MAX_NFEAT) return false;
+      if (nfeat <= RegF::CAP) body(RegF{nfeat}); else body(WideF{nfeat});
+      return true;
+  }
+}
+
+// One support-vector record: with F fixed in registers (loaded with
+// 128-bit loads), else read from its staged copy in shared memory as the
+// loops need it (a broadcast load; it keeps CAP registers free).
+template <typename T, class FM, bool = FM::FIXED>
+struct SvcRec {
+  T v[FM::CAP];
+  T sq;  // |sv|^2
+  T dc;
+  __device__ __forceinline__ T sv(int k) const { return v[k]; }
+};
+
+template <typename T, class FM>
+struct SvcRec<T, FM, false> {
+  const T* p;
+  T sq;
+  T dc;
+  __device__ __forceinline__ T sv(int k) const { return p[k]; }
 };
 
 // Streaming multiprocessors of the current device (cached per device; 132
@@ -57,84 +156,104 @@ inline int sm_count() {
   return count[dev] > 0 ? count[dev] : 132;
 }
 
-// Stage records [s0, s0 + m) of (sv, dc) into rec, with the whole block;
+// Records a stage holds.
+template <class FM>
+__device__ __forceinline__ int svc_stage_records(const FM& fm) {
+  return SVC_STAGE_VALUES / svc_rstride(fm.n());
+}
+
+// Stage records [s0, s0 + m) of (sv, dc) into buf, with the whole block;
 // |sv|^2 is a chain of FMAs in feature order.
-template <typename T>
-__device__ __forceinline__ void svc_stage(SvcRecord<T>* rec,
+template <typename T, class FM>
+__device__ __forceinline__ void svc_stage(T* buf, const FM& fm,
                                           const T* __restrict__ sv,
                                           const T* __restrict__ dc, int s0,
                                           int m) {
+  const int nf = fm.n(), rs = svc_rstride(nf);
   for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    const T* p = sv + (long long)(s0 + k) * SVC_NFEAT;
-    SvcRecord<T> r;
+    const T* p = sv + (long long)(s0 + k) * nf;
+    T* r = buf + k * rs;
     T q = T(0);
-#pragma unroll
-    for (int j = 0; j < SVC_NFEAT; ++j) {
-      r.v[j] = p[j];
-      q = fma_t(r.v[j], r.v[j], q);
-    }
-    r.v[6] = q;
-    r.v[7] = dc[s0 + k];
-    rec[k] = r;
+    for_features(fm, [&](int j) {
+      const T v = p[j];
+      r[j] = v;
+      q = fma_t(v, v, q);
+    });
+    r[nf] = q;
+    r[nf + 1] = dc[s0 + k];
   }
 }
 
-__device__ __forceinline__ void svc_load(const SvcRecord<float>& r,
-                                         float (&v)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(r.v)[0];
-  const float4 b = reinterpret_cast<const float4*>(r.v)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void svc_load(const SvcRecord<double>& r,
-                                         double (&v)[8]) {
+// Load staged record s: with F fixed as 128-bit loads of the whole record.
+template <typename T, class FM>
+__device__ __forceinline__ void svc_load(const T* buf, int s, const FM& fm,
+                                         SvcRec<T, FM>& r) {
+  if constexpr (FM::FIXED) {
+    constexpr int F = FM::CAP, RS = svc_rstride(F);
+    T v[RS];
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const double2 a = reinterpret_cast<const double2*>(r.v)[k];
-    v[2 * k] = a.x;
-    v[2 * k + 1] = a.y;
+      for (int k = 0; k < RS / 4; ++k) {
+        const float4 a = reinterpret_cast<const float4*>(buf + s * RS)[k];
+        v[4 * k] = a.x; v[4 * k + 1] = a.y; v[4 * k + 2] = a.z;
+        v[4 * k + 3] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < RS / 2; ++k) {
+        const double2 a = reinterpret_cast<const double2*>(buf + s * RS)[k];
+        v[2 * k] = a.x; v[2 * k + 1] = a.y;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < F; ++k) r.v[k] = v[k];
+    r.sq = v[F];
+    r.dc = v[F + 1];
+  } else {
+    const int nf = fm.n();
+    r.p = buf + s * svc_rstride(nf);
+    r.sq = r.p[nf];
+    r.dc = r.p[nf + 1];
   }
 }
 
 // |x|^2 of a point's features, a chain of FMAs in feature order (as
 // |sv|^2 in svc_stage; the form nvcc had contracted q += x * x into).
-template <typename T>
-__device__ __forceinline__ T svc_norm2(const T (&x)[SVC_NFEAT]) {
+template <typename T, class FM>
+__device__ __forceinline__ T svc_norm2(const T (&x)[FM::CAP],
+                                       const FM& fm) {
   T q = T(0);
-#pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) q = fma_t(x[k], x[k], q);
+  for_features(fm, [&](int k) { q = fma_t(x[k], x[k], q); });
   return q;
 }
 
 // exp(-gamma max(|x|^2 + |sv|^2 - 2 x.sv, 0)) of one point and one record.
-template <typename T>
-__device__ __forceinline__ T svc_term(const T (&r)[8],
-                                      const T (&x)[SVC_NFEAT], T x2,
-                                      T gamma) {
+template <typename T, class FM>
+__device__ __forceinline__ T svc_term(const SvcRec<T, FM>& r,
+                                      const T (&x)[FM::CAP], T x2, T gamma,
+                                      const FM& fm) {
   T cross = T(0);
-#pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) cross = fma_t(x[k], r[k], cross);
-  T d2 = x2 + r[6] - T(2) * cross;
+  for_features(fm, [&](int k) { cross = fma_t(x[k], r.sv(k), cross); });
+  T d2 = x2 + r.sq - T(2) * cross;
   d2 = d2 > T(0) ? d2 : T(0);
   return exp_t(-gamma * d2);
 }
 
 // acc[p] += sum over the staged records [0, m), in order, of
 // dc_s exp(-gamma d2(x_p, sv_s)), for the P points a thread owns.
-template <typename T, int P>
-__device__ __forceinline__ void svc_accumulate(const SvcRecord<T>* rec,
-                                               int m,
-                                               const T (&x)[P][SVC_NFEAT],
+template <typename T, class FM, int P>
+__device__ __forceinline__ void svc_accumulate(const T* buf, int m,
+                                               const FM& fm,
+                                               const T (&x)[P][FM::CAP],
                                                const T (&x2)[P], T gamma,
                                                T (&acc)[P]) {
 #pragma unroll 2
   for (int s = 0; s < m; ++s) {
-    T r[8];
-    svc_load(rec[s], r);
+    SvcRec<T, FM> r;
+    svc_load(buf, s, fm, r);
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      acc[p] = fma_t(r[7], svc_term(r, x[p], x2[p], gamma), acc[p]);
+      acc[p] = fma_t(r.dc, svc_term(r, x[p], x2[p], gamma, fm), acc[p]);
   }
 }
 
@@ -143,29 +262,30 @@ __device__ __forceinline__ void svc_accumulate(const SvcRecord<T>* rec,
 // w = dc e, rounded; ws += w; gs_k = fma(w, sv_k, gs_k).  Each operation
 // is written out, so that no contraction the compiler may choose changes
 // the bits.
-template <typename T>
-__device__ __forceinline__ void svc_grad_fold(const T (&r)[8], T e, T& ws,
-                                              T (&gs)[SVC_NFEAT]) {
-  const T w = mul_rn(r[7], e);
+template <typename T, class FM>
+__device__ __forceinline__ void svc_grad_fold(const SvcRec<T, FM>& r, T e,
+                                              T& ws, T (&gs)[FM::CAP],
+                                              const FM& fm) {
+  const T w = mul_rn(r.dc, e);
   ws = add_rn(ws, w);
-#pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) gs[k] = fma_t(w, r[k], gs[k]);
+  for_features(fm, [&](int k) { gs[k] = fma_t(w, r.sv(k), gs[k]); });
 }
 
 // ws[p] and gs[p] += the folds of the staged records [0, m), in order, for
 // the P points a thread owns (kernel E's sums; svc_accumulate's loop,
 // unrolled four times: python -m pylabfea_tpu_torch.sweep_e).
-template <typename T, int P>
+template <typename T, class FM, int P>
 __device__ __forceinline__ void svc_grad_accumulate(
-    const SvcRecord<T>* rec, int m, const T (&x)[P][SVC_NFEAT],
-    const T (&x2)[P], T gamma, T (&ws)[P], T (&gs)[P][SVC_NFEAT]) {
+    const T* buf, int m, const FM& fm, const T (&x)[P][FM::CAP],
+    const T (&x2)[P], T gamma, T (&ws)[P], T (&gs)[P][FM::CAP]) {
 #pragma unroll 4
   for (int s = 0; s < m; ++s) {
-    T r[8];
-    svc_load(rec[s], r);
+    SvcRec<T, FM> r;
+    svc_load(buf, s, fm, r);
 #pragma unroll
     for (int p = 0; p < P; ++p)
-      svc_grad_fold(r, svc_term(r, x[p], x2[p], gamma), ws[p], gs[p]);
+      svc_grad_fold(r, svc_term(r, x[p], x2[p], gamma, fm), ws[p], gs[p],
+                    fm);
   }
 }
 

@@ -19,9 +19,10 @@
 // Design: a thread owns P points (P = 4, 2 or 1, chosen at launch as in
 // kernel D, so that the grid still fills the card), their features and
 // sums in registers.  The block stages the support vectors as D's packed
-// 8-value records (svc_eval.cuh; the |sv|^2 slot is not used here): one
-// record is two 128-bit shared loads in float32, a broadcast to the warp,
-// and serves all P points; the record loop is unrolled twice.  Distances
+// records (svc_eval.cuh; the |sv|^2 slot is not used here): with 6
+// features one record is two 128-bit shared loads in float32, a broadcast
+// to the warp, and serves all P points; the record loop is unrolled
+// twice.  Distances
 // are exact subtract-square, as in _fgrad_kernel (no matmul expansion, so
 // no cancellation).  Each point's arithmetic is that of the earlier
 // one-point-a-thread kernel, operation for operation in the same order
@@ -30,8 +31,11 @@
 // and the results keep its bits: in float32 the faithful path's branches
 // follow the last bit of f (PERF.md section 6), and the fast phase of every
 // faithful solve runs on this kernel.  The exponential stays expf / exp.
-// F = 6 (the 6-D stress features); the dtype is float (the card's main
-// path) or double.  The kernel allocates nothing and launches on the
+// Any F from 1 to SVC_MAX_NFEAT (svc_eval.cuh's feature policies).  A
+// thread keeps 2 P F values of its points (features and gradient sums):
+// with 15 features P is at most MAX_P15 so that they stay in registers,
+// and with F a launch argument P is 1.  The dtype is float (the card's
+// main path) or double.  The kernel allocates nothing and launches on the
 // caller's stream.
 #include <cuda_runtime.h>
 
@@ -39,55 +43,54 @@
 
 namespace {
 
-using pylabfea::SVC_NFEAT;
-using pylabfea::SVC_STAGE;
-using pylabfea::SvcRecord;
+using pylabfea::for_features;
+using pylabfea::SVC_STAGE_VALUES;
 
 constexpr int THREADS = 256;
+// the most points a thread owns with 15 features
+constexpr int MAX_P15 = 2;
 
-template <typename T, int P, bool WITH_GRAD>
+template <typename T, class FM, int P, bool WITH_GRAD>
 __global__ void __launch_bounds__(THREADS)
 svc_fgrad_kernel(const T* __restrict__ x, const T* __restrict__ sv,
                  const T* __restrict__ dc, long long n, int nsv, T gamma,
-                 T rho, T* __restrict__ f, T* __restrict__ g) {
-  constexpr int F = SVC_NFEAT;
-  __shared__ SvcRecord<T> rec[SVC_STAGE];
+                 T rho, T* __restrict__ f, T* __restrict__ g, FM fm) {
+  constexpr int F = FM::CAP;
+  __shared__ __align__(16) T buf[SVC_STAGE_VALUES];
+  const int nf = fm.n();
+  const int stage = pylabfea::svc_stage_records(fm);
   const long long base = (long long)blockIdx.x * (THREADS * P) + threadIdx.x;
   T xr[P][F], ws[P], gs[P][F];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const long long i = base + (long long)p * THREADS;
-#pragma unroll
-    for (int k = 0; k < F; ++k) {
-      xr[p][k] = i < n ? x[i * F + k] : T(0);
+    for_features(fm, [&](int k) {
+      xr[p][k] = i < n ? x[i * nf + k] : T(0);
       gs[p][k] = T(0);
-    }
+    });
     ws[p] = T(0);
   }
 
-  for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
-    const int m = min(SVC_STAGE, nsv - s0);
+  for (int s0 = 0; s0 < nsv; s0 += stage) {
+    const int m = min(stage, nsv - s0);
     __syncthreads();  // previous chunk fully consumed
-    pylabfea::svc_stage(rec, sv, dc, s0, m);
+    pylabfea::svc_stage(buf, fm, sv, dc, s0, m);
     __syncthreads();
 #pragma unroll 2
     for (int s = 0; s < m; ++s) {
-      T r[8];
-      pylabfea::svc_load(rec[s], r);
+      pylabfea::SvcRec<T, FM> r;
+      pylabfea::svc_load(buf, s, fm, r);
 #pragma unroll
       for (int p = 0; p < P; ++p) {
         T d2 = T(0);
-#pragma unroll
-        for (int k = 0; k < F; ++k) {
-          const T d = xr[p][k] - r[k];
+        for_features(fm, [&](int k) {
+          const T d = xr[p][k] - r.sv(k);
           d2 += d * d;
-        }
-        const T w = r[7] * pylabfea::exp_t(-gamma * d2);
+        });
+        const T w = r.dc * pylabfea::exp_t(-gamma * d2);
         ws[p] += w;
-        if (WITH_GRAD) {
-#pragma unroll
-          for (int k = 0; k < F; ++k) gs[p][k] += w * r[k];
-        }
+        if (WITH_GRAD)
+          for_features(fm, [&](int k) { gs[p][k] += w * r.sv(k); });
       }
     }
   }
@@ -96,44 +99,55 @@ svc_fgrad_kernel(const T* __restrict__ x, const T* __restrict__ sv,
     const long long i = base + (long long)p * THREADS;
     if (i >= n) continue;
     f[i] = ws[p] + rho;
-    if (WITH_GRAD) {
-#pragma unroll
-      for (int k = 0; k < F; ++k)
-        g[i * F + k] = T(-2) * gamma * (ws[p] * xr[p][k] - gs[p][k]);
-    }
+    if (WITH_GRAD)
+      for_features(fm, [&](int k) {
+        g[i * nf + k] = T(-2) * gamma * (ws[p] * xr[p][k] - gs[p][k]);
+      });
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, class FM>
 void launch_p(const T* x, const T* sv, const T* dc, long long n, int nsv,
-              T gamma, T rho, T* f, T* g, bool with_grad,
+              T gamma, T rho, T* f, T* g, bool with_grad, FM fm,
               cudaStream_t stream) {
   const long long per_block = (long long)THREADS * P;
   const unsigned blocks = (unsigned)((n + per_block - 1) / per_block);
   if (with_grad)
-    svc_fgrad_kernel<T, P, true><<<blocks, THREADS, 0, stream>>>(
-        x, sv, dc, n, nsv, gamma, rho, f, g);
+    svc_fgrad_kernel<T, FM, P, true><<<blocks, THREADS, 0, stream>>>(
+        x, sv, dc, n, nsv, gamma, rho, f, g, fm);
   else
-    svc_fgrad_kernel<T, P, false><<<blocks, THREADS, 0, stream>>>(
-        x, sv, dc, n, nsv, gamma, rho, f, g);
+    svc_fgrad_kernel<T, FM, P, false><<<blocks, THREADS, 0, stream>>>(
+        x, sv, dc, n, nsv, gamma, rho, f, g, fm);
 }
 
 template <typename T>
 int launch(const T* x, const T* sv, const T* dc, long long n, int nsv,
            int nfeat, T gamma, T rho, T* f, T* g, int with_grad,
            void* stream) {
-  if (nfeat != SVC_NFEAT || n <= 0 || nsv <= 0 || (with_grad && g == nullptr))
+  if (n <= 0 || nsv <= 0 || (with_grad && g == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const bool wg = with_grad != 0;
   // P points a thread while the threads still number at least 1024 per SM
   const long long fill = (long long)pylabfea::sm_count() * 1024;
-  if (n >= 4 * fill)
-    launch_p<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, s);
-  else if (n >= 2 * fill)
-    launch_p<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, s);
-  else
-    launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, s);
+  const bool ok = pylabfea::with_features(nfeat, [&](auto fm) {
+    using FM = decltype(fm);
+    constexpr int PMAX = !FM::FIXED ? 1 : FM::CAP == 15 ? MAX_P15 : 4;
+    if constexpr (PMAX >= 4) {
+      if (n >= 4 * fill) {
+        launch_p<T, 4>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, fm, s);
+        return;
+      }
+    }
+    if constexpr (PMAX >= 2) {
+      if (n >= 2 * fill) {
+        launch_p<T, 2>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, fm, s);
+        return;
+      }
+    }
+    launch_p<T, 1>(x, sv, dc, n, nsv, gamma, rho, f, g, wg, fm, s);
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,8 @@
 //
 // For every lane i (a stress direction su_i, a start abscissa and a top),
 // the root x of f(x) = svc_decision(features(x su_i)) with the rules of the
-// port's constitutive.ml_yf_dist (the JAX ml_yf_dist):
+// port's constitutive.ml_yf_dist (the JAX ml_yf_dist), for every SVC
+// feature layout (svc_kernels.FeatureMap):
 //
 //   1. march down from start: x *= 0.98 while f >= 0 and x > 0.01, at most
 //      maxmarch steps; then march up from start: x *= 1.02 while f < 0 and
@@ -22,6 +23,19 @@
 // iterations, up to 100 in float32 where roots of 128-256 MPa lie below
 // xtol's float32 spacing).  The optional per-lane output nevals reports the
 // count, from which the caller computes the bound.
+//
+// Features: the leading ones come from the stress s = x su_i, the others
+// are per-lane constants the wrapper forms once (they stay fixed while the
+// stress scales: the plastic-strain block and zero columns of work
+// hardening, the standardized texture, theta/pi of the cylindrical
+// layout).  The leading ones are the six stress components (deviatoric if
+// dev_only) over scale_seq, or with a texture scaler (s_k - mean_k) /
+// scale_k; for the cylindrical layout one, seq_J2(s) / scale_seq - 1 (s
+// Voigt or principal).  The cylindrical kernel forms seq_J2 of x su_i in
+// registers and keeps theta(su_i) as the lane's constant, where the JAX
+// package re-runs its eigensolver on x su_i at every abscissa: the two
+// agree in exact arithmetic (seq_J2 is 1-homogeneous, theta 0-homogeneous)
+// and part by rounding, which chip_smoke.py holds to phase 4's rule.
 //
 // Design: each lane is a small state machine (march down, march up, Brent,
 // done) in registers that asks for one evaluation at a time; the Brent
@@ -54,11 +68,10 @@ namespace {
 using pylabfea::add_rn;
 using pylabfea::BrentState;
 using pylabfea::div_rn;
+using pylabfea::for_features;
 using pylabfea::mul_rn;
 using pylabfea::sub_rn;
-using pylabfea::SVC_NFEAT;
-using pylabfea::SVC_STAGE;
-using pylabfea::SvcRecord;
+using pylabfea::SVC_STAGE_VALUES;
 
 constexpr int THREADS = 256;
 
@@ -129,26 +142,67 @@ __device__ __forceinline__ void advance(Lane<T>& L, T f, int maxmarch,
     L.x = L.b.xcur;
 }
 
-// The features of x su: x su, deviatoric if dev_only, over scale, each
-// operation as the plain path's PyTorch operations compute it on the card
-// (jtensors.sig_dev, constitutive._features), where a division by a host
-// scalar is a product with the scalar's reciprocal: so the kernel's
-// features, and with the in-order sum its f, are bitwise those of kernel D
-// on the features PyTorch forms.
+// A lane's feature map: its direction su (nsu = 6 Voigt, or 3 principal
+// values for the cylindrical layout), the texture scaler of the stress
+// block (tex) and the per-lane constant features ext[k], k >= lead.
+template <typename T, class FM>
+struct RootMap {
+  T su[6], mean[6], fsc[6], ext[FM::CAP];
+  T inv_scale;
+  int nsu;
+  bool dev_only, cyl, tex;
+};
+
+// seq_J2 of the stress rows s (jtensors.seq_j2_voigt / seq_j2_princ), one
+// IEEE operation at a time in their order.
 template <typename T>
-__device__ __forceinline__ void features(T x, const T (&su)[SVC_NFEAT],
-                                         T inv_scale, bool dev_only,
-                                         T (&out)[SVC_NFEAT]) {
-  T s[SVC_NFEAT];
-#pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) s[k] = mul_rn(x, su[k]);
-  if (dev_only) {
-    const T p = mul_rn(add_rn(add_rn(s[0], s[1]), s[2]), div_rn(T(1), T(3)));
-#pragma unroll
-    for (int k = 0; k < 3; ++k) s[k] = sub_rn(s[k], p);
+__device__ __forceinline__ T seq_j2(const T (&s)[6], bool voigt) {
+  const T d12 = sub_rn(s[0], s[1]), d23 = sub_rn(s[1], s[2]),
+          d31 = sub_rn(s[2], s[0]);
+  T v = mul_rn(T(0.5), add_rn(add_rn(mul_rn(d12, d12), mul_rn(d23, d23)),
+                              mul_rn(d31, d31)));
+  if (voigt) {
+    const T sh = add_rn(add_rn(mul_rn(s[3], s[3]), mul_rn(s[4], s[4])),
+                        mul_rn(s[5], s[5]));
+    v = add_rn(v, mul_rn(T(3), sh));
   }
+  return v > T(0) ? pylabfea::sqrt_rn(v) : T(0);
+}
+
+// The features of x su, each operation as the plain path's PyTorch
+// operations compute it on the card (svc_kernels.FeatureMap), where a
+// division by a host scalar is a product with the scalar's reciprocal and
+// one by a tensor a division: so the kernel's features, and with the
+// in-order sum its f, are bitwise those of kernel D on the features
+// PyTorch forms.
+template <typename T, class FM>
+__device__ __forceinline__ void features(T x, const RootMap<T, FM>& map,
+                                         const FM& fm, T (&out)[FM::CAP]) {
+  const int nf = fm.n();
+  T s[6];
 #pragma unroll
-  for (int k = 0; k < SVC_NFEAT; ++k) out[k] = mul_rn(s[k], inv_scale);
+  for (int k = 0; k < 6; ++k)
+    s[k] = k < map.nsu ? mul_rn(x, map.su[k]) : T(0);
+  int lead = 6;
+  if (map.cyl) {
+    lead = 1;
+    out[0] = sub_rn(mul_rn(seq_j2(s, map.nsu == 6), map.inv_scale), T(1));
+  } else {
+    if (map.dev_only) {
+      const T p = mul_rn(add_rn(add_rn(s[0], s[1]), s[2]),
+                         div_rn(T(1), T(3)));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) s[k] = sub_rn(s[k], p);
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      if (k < FM::CAP && k < nf)
+        out[k] = map.tex ? div_rn(sub_rn(s[k], map.mean[k]), map.fsc[k])
+                         : mul_rn(s[k], map.inv_scale);
+  }
+  for_features(fm, [&](int k) {
+    if (k >= lead) out[k] = map.ext[k];
+  });
 }
 
 // acc + the sum over the staged records [0, m), in order, of dc_s
@@ -159,18 +213,19 @@ __device__ __forceinline__ void features(T x, const T (&su)[SVC_NFEAT],
 // D's one in-order FMA chain and holds the same bits (a tree reduction
 // would give other bits than D, a butterfly different bits in different
 // threads, whose Brent iterates would then part).
-template <int GT, typename T>
-__device__ __forceinline__ T group_accumulate(const SvcRecord<T>* rec, int m,
-                                              const T (&x)[SVC_NFEAT], T x2,
+template <int GT, typename T, class FM>
+__device__ __forceinline__ T group_accumulate(const T* buf, int m,
+                                              const FM& fm,
+                                              const T (&x)[FM::CAP], T x2,
                                               T gamma, T acc) {
   if constexpr (GT == 1) {  // one thread a lane: kernel D's own loop
-    T xs[1][SVC_NFEAT], x2s[1] = {x2}, accs[1] = {acc};
-#pragma unroll
-    for (int k = 0; k < SVC_NFEAT; ++k) xs[0][k] = x[k];
-    pylabfea::svc_accumulate<T, 1>(rec, m, xs, x2s, gamma, accs);
+    T xs[1][FM::CAP], x2s[1] = {x2}, accs[1] = {acc};
+    for_features(fm, [&](int k) { xs[0][k] = x[k]; });
+    pylabfea::svc_accumulate<T, FM, 1>(buf, m, fm, xs, x2s, gamma, accs);
     return accs[0];
   } else {
     constexpr int B = GT < 8 ? GT : 8;  // terms gathered before folding
+    const int rs = pylabfea::svc_rstride(fm.n());
     const int g = threadIdx.x % GT;
     const unsigned first = (threadIdx.x & 31u) & ~(unsigned)(GT - 1);
     const unsigned mask =
@@ -178,9 +233,9 @@ __device__ __forceinline__ T group_accumulate(const SvcRecord<T>* rec, int m,
     for (int base = 0; base < m; base += GT) {
       T e = T(0);
       if (base + g < m) {
-        T r[8];
-        pylabfea::svc_load(rec[base + g], r);
-        e = pylabfea::svc_term(r, x, x2, gamma);
+        pylabfea::SvcRec<T, FM> r;
+        pylabfea::svc_load(buf, base + g, fm, r);
+        e = pylabfea::svc_term(r, x, x2, gamma, fm);
       }
       const int cnt = min(GT, m - base);
 #pragma unroll
@@ -189,7 +244,8 @@ __device__ __forceinline__ T group_accumulate(const SvcRecord<T>* rec, int m,
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           ek[b] = __shfl_sync(mask, e, k0 + b, GT);
-          dk[b] = k0 + b < cnt ? rec[base + k0 + b].v[7] : T(0);
+          dk[b] = k0 + b < cnt ? buf[(base + k0 + b) * rs + fm.n() + 1]
+                               : T(0);
         }
 #pragma unroll
         for (int b = 0; b < B; ++b)
@@ -200,134 +256,166 @@ __device__ __forceinline__ T group_accumulate(const SvcRecord<T>* rec, int m,
   }
 }
 
-template <typename T, int GT>
+template <typename T>
+struct RootArgs {
+  const T *su, *extra, *mean, *fscale, *start, *top, *sv, *dc;
+  long long n;
+  int nsu, nsv;
+  T gamma, rho, scale;
+  bool dev_only, cyl;
+  int maxmarch, maxiter;
+  T xtol, rtol;
+  T* xs;
+  bool* ok;
+  int* nevals;
+};
+
+template <typename T, class FM, int GT>
 __global__ void __launch_bounds__(THREADS)
-yf_root_kernel(const T* __restrict__ su_, const T* __restrict__ start,
-               const T* __restrict__ top, const T* __restrict__ sv,
-               const T* __restrict__ dc, long long n, int nsv, T gamma, T rho,
-               T scale, bool dev_only, int maxmarch, int maxiter, T xtol,
-               T rtol, T* __restrict__ xs, bool* __restrict__ ok,
-               int* __restrict__ nevals) {
-  __shared__ SvcRecord<T> rec[SVC_STAGE];
-  const T inv_scale = div_rn(T(1), scale);
+yf_root_kernel(const RootArgs<T> a, FM fm) {
+  __shared__ __align__(16) T buf[SVC_STAGE_VALUES];
+  const int nf = fm.n(), nsv = a.nsv;
+  const int stage = pylabfea::svc_stage_records(fm);
   const long long lane = ((long long)blockIdx.x * THREADS + threadIdx.x) / GT;
   const int g = threadIdx.x % GT;
-  const bool live = lane < n;
-  T su[SVC_NFEAT];
+  const bool live = lane < a.n;
+  RootMap<T, FM> map;
+  map.inv_scale = div_rn(T(1), a.scale);
+  map.nsu = a.nsu;
+  map.dev_only = a.dev_only;
+  map.cyl = a.cyl;
+  map.tex = a.mean != nullptr;
+  const int lead = a.cyl ? 1 : 6, next = nf - lead;
   Lane<T> L;
   L.stage = START;
   L.it = L.nevals = 0;
   if (live) {
 #pragma unroll
-    for (int k = 0; k < SVC_NFEAT; ++k) su[k] = su_[lane * SVC_NFEAT + k];
-    L.start = L.x = start[lane];
-    L.top = top[lane];
+    for (int k = 0; k < 6; ++k) {
+      map.su[k] = k < a.nsu ? a.su[lane * a.nsu + k] : T(0);
+      map.mean[k] = map.tex ? a.mean[k] : T(0);
+      map.fsc[k] = map.tex ? a.fscale[k] : T(1);
+    }
+    for_features(fm, [&](int k) {
+      if (k >= lead) map.ext[k] = a.extra[lane * next + k - lead];
+    });
+    L.start = L.x = a.start[lane];
+    L.top = a.top[lane];
   }
-  if (nsv <= SVC_STAGE) {
-    pylabfea::svc_stage(rec, sv, dc, 0, nsv);
+  if (nsv <= stage) {
+    pylabfea::svc_stage(buf, fm, a.sv, a.dc, 0, nsv);
     __syncthreads();
     if (live) {
       while (L.stage != DONE) {
-        T x[SVC_NFEAT];
-        features(L.x, su, inv_scale, dev_only, x);
-        const T acc = group_accumulate<GT>(rec, nsv, x, pylabfea::svc_norm2(x),
-                                           gamma, T(0));
-        advance(L, acc + rho, maxmarch, maxiter, xtol, rtol);
+        T x[FM::CAP];
+        features(L.x, map, fm, x);
+        const T acc = group_accumulate<GT>(
+            buf, nsv, fm, x, pylabfea::svc_norm2(x, fm), a.gamma, T(0));
+        advance(L, acc + a.rho, a.maxmarch, a.maxiter, a.xtol, a.rtol);
       }
     }
   } else {
     bool active = live;
     while (__syncthreads_or(active)) {
-      T x[SVC_NFEAT], x2 = T(0), acc = T(0);
+      T x[FM::CAP], x2 = T(0), acc = T(0);
       if (active) {
-        features(L.x, su, inv_scale, dev_only, x);
-        x2 = pylabfea::svc_norm2(x);
+        features(L.x, map, fm, x);
+        x2 = pylabfea::svc_norm2(x, fm);
       }
-      for (int s0 = 0; s0 < nsv; s0 += SVC_STAGE) {
-        const int m = min(SVC_STAGE, nsv - s0);
+      for (int s0 = 0; s0 < nsv; s0 += stage) {
+        const int m = min(stage, nsv - s0);
         __syncthreads();  // previous chunk fully consumed
-        pylabfea::svc_stage(rec, sv, dc, s0, m);
+        pylabfea::svc_stage(buf, fm, a.sv, a.dc, s0, m);
         __syncthreads();
-        if (active) acc = group_accumulate<GT>(rec, m, x, x2, gamma, acc);
+        if (active)
+          acc = group_accumulate<GT>(buf, m, fm, x, x2, a.gamma, acc);
       }
       if (active) {
-        advance(L, acc + rho, maxmarch, maxiter, xtol, rtol);
+        advance(L, acc + a.rho, a.maxmarch, a.maxiter, a.xtol, a.rtol);
         active = L.stage != DONE;
       }
     }
   }
   if (live && g == 0) {
-    xs[lane] = L.b.ok ? L.b.root : L.b.xcur;
-    ok[lane] = L.b.ok;
-    if (nevals != nullptr) nevals[lane] = L.nevals;
+    a.xs[lane] = L.b.ok ? L.b.root : L.b.xcur;
+    a.ok[lane] = L.b.ok;
+    if (a.nevals != nullptr) a.nevals[lane] = L.nevals;
   }
 }
 
-template <typename T, int GT>
-void launch_g(const T* su, const T* start, const T* top, const T* sv,
-              const T* dc, long long n, int nsv, T gamma, T rho, T scale,
-              bool dev_only, int maxmarch, int maxiter, T xtol, T rtol, T* xs,
-              bool* ok, int* nevals, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n * GT + THREADS - 1) / THREADS);
-  yf_root_kernel<T, GT><<<blocks, THREADS, 0, stream>>>(
-      su, start, top, sv, dc, n, nsv, gamma, rho, scale, dev_only, maxmarch,
-      maxiter, xtol, rtol, xs, ok, nevals);
+template <typename T, int GT, class FM>
+void launch_g(const RootArgs<T>& a, FM fm, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.n * GT + THREADS - 1) / THREADS);
+  yf_root_kernel<T, FM, GT><<<blocks, THREADS, 0, stream>>>(a, fm);
 }
 
 template <typename T>
-int launch(const T* su, const T* start, const T* top, const T* sv,
-           const T* dc, long long n, int nsv, int nfeat, T gamma, T rho,
-           T scale, int dev_only, int maxmarch, int maxiter, T xtol, T rtol,
-           T* xs, bool* ok, int* nevals, void* stream) {
-  if (nfeat != SVC_NFEAT || n <= 0 || nsv <= 0 || maxmarch < 0 ||
-      maxiter < 0)
+int launch(const RootArgs<T>& a, int nfeat, void* stream) {
+  const int lead = a.cyl ? 1 : 6;
+  if (a.n <= 0 || a.nsv <= 0 || a.maxmarch < 0 || a.maxiter < 0 ||
+      nfeat < lead || (a.nsu != 6 && !(a.cyl && a.nsu == 3)) ||
+      (nfeat > lead && a.extra == nullptr) ||
+      ((a.mean == nullptr) != (a.fscale == nullptr)) ||
+      (a.cyl && a.mean != nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   // the group size: the largest power of two up to 32 with n * GT threads
   // still at most 1024 per SM
   const long long fill = (long long)pylabfea::sm_count() * 1024;
   int gt = 1;
-  while (gt < 32 && n * gt * 2 <= fill) gt *= 2;
-#define PYLABFEA_YF_ROOT(G)                                                  \
-  launch_g<T, G>(su, start, top, sv, dc, n, nsv, gamma, rho, scale,          \
-                 dev_only != 0, maxmarch, maxiter, xtol, rtol, xs, ok, nevals, \
-                 s)
-  switch (gt) {
-    case 1: PYLABFEA_YF_ROOT(1); break;
-    case 2: PYLABFEA_YF_ROOT(2); break;
-    case 4: PYLABFEA_YF_ROOT(4); break;
-    case 8: PYLABFEA_YF_ROOT(8); break;
-    case 16: PYLABFEA_YF_ROOT(16); break;
-    default: PYLABFEA_YF_ROOT(32); break;
-  }
-#undef PYLABFEA_YF_ROOT
+  while (gt < 32 && a.n * gt * 2 <= fill) gt *= 2;
+  const bool ok = pylabfea::with_features(nfeat, [&](auto fm) {
+    switch (gt) {
+      case 1: launch_g<T, 1>(a, fm, s); break;
+      case 2: launch_g<T, 2>(a, fm, s); break;
+      case 4: launch_g<T, 4>(a, fm, s); break;
+      case 8: launch_g<T, 8>(a, fm, s); break;
+      case 16: launch_g<T, 16>(a, fm, s); break;
+      default: launch_g<T, 32>(a, fm, s); break;
+    }
+  });
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int yf_root(const T* su, int nsu, const T* extra, const T* mean,
+            const T* fscale, const T* start, const T* top, const T* sv,
+            const T* dc, long long n, int nsv, int nfeat, T gamma, T rho,
+            T scale_seq, int dev_only, int cyl, int maxmarch, int maxiter,
+            T xtol, T rtol, T* xs, bool* ok, int* nevals, void* stream) {
+  RootArgs<T> a{su, extra, mean, fscale, start, top, sv, dc, n, nsu, nsv,
+                gamma, rho, scale_seq, dev_only != 0, cyl != 0, maxmarch,
+                maxiter, xtol, rtol, xs, ok, nevals};
+  return launch(a, nfeat, stream);
 }
 
 }  // namespace
 
-extern "C" int pylabfea_yf_root_f32(const float* su, const float* start,
-                                    const float* top, const float* sv,
-                                    const float* dc, long long n, int nsv,
-                                    int nfeat, float gamma, float rho,
-                                    float scale_seq, int dev_only,
-                                    int maxmarch, int maxiter, float xtol,
-                                    float rtol, float* xs, bool* ok,
-                                    int* nevals, void* stream) {
-  return launch<float>(su, start, top, sv, dc, n, nsv, nfeat, gamma, rho,
-                       scale_seq, dev_only, maxmarch, maxiter, xtol, rtol, xs,
-                       ok, nevals, stream);
+// su (n, nsu); extra (n, nfeat - lead) or null; mean and fscale (6,) or
+// null; lead = 1 with cyl, else 6.
+extern "C" int pylabfea_yf_root_f32(
+    const float* su, int nsu, const float* extra, const float* mean,
+    const float* fscale, const float* start, const float* top,
+    const float* sv, const float* dc, long long n, int nsv, int nfeat,
+    float gamma, float rho, float scale_seq, int dev_only, int cyl,
+    int maxmarch, int maxiter, float xtol, float rtol, float* xs, bool* ok,
+    int* nevals, void* stream) {
+  return yf_root<float>(su, nsu, extra, mean, fscale, start, top, sv, dc, n,
+                        nsv, nfeat, gamma, rho, scale_seq, dev_only, cyl,
+                        maxmarch, maxiter, xtol, rtol, xs, ok, nevals,
+                        stream);
 }
 
-extern "C" int pylabfea_yf_root_f64(const double* su, const double* start,
-                                    const double* top, const double* sv,
-                                    const double* dc, long long n, int nsv,
-                                    int nfeat, double gamma, double rho,
-                                    double scale_seq, int dev_only,
-                                    int maxmarch, int maxiter, double xtol,
-                                    double rtol, double* xs, bool* ok,
-                                    int* nevals, void* stream) {
-  return launch<double>(su, start, top, sv, dc, n, nsv, nfeat, gamma, rho,
-                        scale_seq, dev_only, maxmarch, maxiter, xtol, rtol,
-                        xs, ok, nevals, stream);
+extern "C" int pylabfea_yf_root_f64(
+    const double* su, int nsu, const double* extra, const double* mean,
+    const double* fscale, const double* start, const double* top,
+    const double* sv, const double* dc, long long n, int nsv, int nfeat,
+    double gamma, double rho, double scale_seq, int dev_only, int cyl,
+    int maxmarch, int maxiter, double xtol, double rtol, double* xs,
+    bool* ok, int* nevals, void* stream) {
+  return yf_root<double>(su, nsu, extra, mean, fscale, start, top, sv, dc, n,
+                         nsv, nfeat, gamma, rho, scale_seq, dev_only, cyl,
+                         maxmarch, maxiter, xtol, rtol, xs, ok, nevals,
+                         stream);
 }

@@ -52,11 +52,11 @@ SIGNATURES = {
     'pylabfea_brent_step_f32': (_L, *(_P,) * 11, ctypes.c_float,
                                 ctypes.c_float, _P),
     'pylabfea_brent_step_f64': (_L, *(_P,) * 11, _D, _D, _P),
-    'pylabfea_yf_root_f32': (*(_P,) * 5, _L, _I, _I, *(ctypes.c_float,) * 3,
-                             _I, _I, _I, ctypes.c_float, ctypes.c_float,
-                             *(_P,) * 4),
-    'pylabfea_yf_root_f64': (*(_P,) * 5, _L, _I, _I, _D, _D, _D, _I, _I, _I,
-                             _D, _D, *(_P,) * 4),
+    'pylabfea_yf_root_f32': (_P, _I, *(_P,) * 7, _L, _I, _I,
+                             *(ctypes.c_float,) * 3, _I, _I, _I, _I,
+                             ctypes.c_float, ctypes.c_float, *(_P,) * 4),
+    'pylabfea_yf_root_f64': (_P, _I, *(_P,) * 7, _L, _I, _I, _D, _D, _D, _I,
+                             _I, _I, _I, _D, _D, *(_P,) * 4),
     'pylabfea_kapply2d_f32': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply2d_f64': (_P, _P, _P, _P, _P, _I, _I, _P),
     'pylabfea_kapply3d_f32': (*(_P,) * 7, _I, _I, _I, _D, _D, _D, _I, _P),

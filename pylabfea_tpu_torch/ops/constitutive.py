@@ -1,19 +1,26 @@
 """Batched constitutive update (subset of ``pylabfea_tpu.ops.constitutive``).
 
 Ported: the analytic Hill/J2/Drucker criterion on 6-D Voigt stresses with
-linear and Voce hardening; the SVC yield function on 6-D stress features
-(``dev_only`` both ways, no work hardening, no texture) through the SVC
-kernels of ``svc_kernels`` (D for the decision function alone, A for the
-fast path's fused value + gradient, E for the faithful flow rule's); the
-production cutting-plane return map ``response_fast`` with the exact
-path-secant tangent; and the reference-faithful substepped return map
-``response`` with the yield-locus distance ``ml_yf_dist`` (bracket marching
-+ Brent per lane, kernel G), for both kinds.  Analytic sdim=3 materials
-evaluate the Hill quadratic on the principal stresses (the closed-form
-eigensolver of ``jtensors``).  Cylindrical, work-hardening and texture SVC
-features raise ``NotImplementedError``.
+linear and Voce hardening; the SVC yield function on every feature layout
+of the JAX package (cylindrical sdim=3 ``(seq/scale_seq - 1, theta/pi)``
+with 2 features, 6-D stress with ``dev_only`` both ways, stress + work
+hardening with 15, and texture-conditioned ones with 6 + tdim or 15 +
+tdim through the fitted StandardScaler, PCA-whitened ADV descriptors
+included) through the SVC kernels of ``svc_kernels`` (D for the decision
+function alone, A for the fast path's fused value + gradient, E for the
+faithful flow rule's, G for the yield-locus distance), with the
+batch-mean work-hardening rate ``khard_of``; the production
+cutting-plane return map ``response_fast`` with the exact path-secant
+tangent; and the reference-faithful substepped return map ``response``
+with the yield-locus distance ``ml_yf_dist`` (bracket marching + Brent
+per lane, kernel G), for both kinds.  Analytic sdim=3 materials evaluate
+the Hill quadratic on the principal stresses, and cylindrical SVC
+features come from them (the closed-form eigensolver of ``jtensors``);
+``yf``, ``fgrad``, ``yf_and_fgrad``, ``ml_yf_dist`` and ``yf_dist`` of a
+cylindrical material also take (N, 3) principal stresses.
 """
 import dataclasses
+import math
 from dataclasses import dataclass
 
 import torch
@@ -37,7 +44,9 @@ class DeviceMaterial:
     ``sy``, ``khard``, ``drucker``, ``scale_seq``, ``scale_wh`` and the
     Voce constants are host floats, so no kernel call reads a scalar back
     from the device.  Analytic materials hold dummy (1, 6) / (1,) SVC
-    tensors, as in the JAX package."""
+    tensors, as in the JAX package.  The feature layout follows from the
+    shapes: 2 features are the cylindrical ones, 6 + tdim the stress
+    (and texture) ones, 15 + tdim add the work-hardening block."""
     hill: torch.Tensor       # (6,)
     sv: torch.Tensor         # (nsv, F) SVC support vectors
     dc: torch.Tensor         # (nsv,) dual coefficients
@@ -53,22 +62,25 @@ class DeviceMaterial:
     is_svc: bool = False
     dev_only: bool = False   # deviatoric stress features
     sdim3: bool = False
+    # texture-conditioned SVC: the StandardScaler's mean and scale (F,) and
+    # the fixed texture descriptor (tdim,); empty (0,) otherwise
+    feat_mean: torch.Tensor = None
+    feat_scale: torch.Tensor = None
+    tex: torch.Tensor = None
+
+    def __post_init__(self):
+        for k in ('feat_mean', 'feat_scale', 'tex'):
+            if getattr(self, k) is None:
+                setattr(self, k, self.hill.new_zeros(0))
 
 
 def material_to(m: DeviceMaterial, dtype) -> DeviceMaterial:
     """The material with its tensors cast to ``dtype`` and its host floats
     kept (the float64 copy of a float64 commit)."""
-    return dataclasses.replace(m, hill=m.hill.to(dtype), sv=m.sv.to(dtype),
-                               dc=m.dc.to(dtype))
-
-
-def _require_ported(m: DeviceMaterial):
-    """Raise for the material kinds the port does not have yet."""
-    if m.is_svc and m.sv.shape[-1] != 6:
-        raise NotImplementedError(
-            'the torch port supports 6-D stress SVC features only (no '
-            f'cylindrical, work-hardening or texture features); got '
-            f'{m.sv.shape[-1]} features')
+    return dataclasses.replace(
+        m, hill=m.hill.to(dtype), sv=m.sv.to(dtype), dc=m.dc.to(dtype),
+        feat_mean=m.feat_mean.to(dtype), feat_scale=m.feat_scale.to(dtype),
+        tex=m.tex.to(dtype))
 
 
 # -----------------------------------------------------------------
@@ -91,15 +103,89 @@ def svc_decision_and_gradient(m: DeviceMaterial, x):
     return sk.svc_f_grad(x, m.sv, m.dc, m.gamma, m.rho)
 
 
+def _has_wh(m: DeviceMaterial):
+    """Does the feature vector carry the work-hardening block?"""
+    return m.sv.shape[-1] - 6 - m.tex.shape[0] == 9
+
+
 def _features(m: DeviceMaterial, sig, epl=None):
-    """6-D stress feature rows: (deviatoric if ``dev_only``) sig/scale_seq."""
+    """SVC feature rows from stress (and plastic strain / texture), the
+    host ``create_scaled_input`` conventions: cylindrical (seq/scale_seq -
+    1, theta/pi) for 2 features, from Voigt (N, 6) or principal (N, 3)
+    rows alike; else the stress (deviatoric if ``dev_only``), without
+    texture over scale_seq with the epl/scale_wh block and three zero
+    columns (acc_strain, max_stress, flag: the FE solver's defaults) for
+    work hardening, with texture the raw feature row through the fitted
+    StandardScaler."""
+    if m.sv.shape[-1] == 2:
+        if sig.shape[-1] == 6:
+            seq = jt.seq_j2_voigt(sig)
+            sp = jt.sig_princ_vals(sig)
+        else:
+            seq = jt.seq_j2_princ(sig)
+            sp = sig
+        theta = jt.polar_ang_princ(sp)
+        return torch.stack([seq / m.scale_seq - 1., theta / math.pi], dim=-1)
     s = jt.sig_dev(sig) if m.dev_only else sig
-    return s / m.scale_seq
+    N = sig.shape[0]
+    zeros3 = sig.new_zeros((N, 3))
+    if _has_wh(m) and epl is None:
+        epl = torch.zeros_like(sig)
+    tdim = m.tex.shape[0]
+    if tdim > 0:
+        parts = [s, epl, zeros3] if _has_wh(m) else [s]
+        parts.append(m.tex.to(sig.dtype).expand(N, tdim))
+        return (torch.cat(parts, dim=-1) - m.feat_mean) / m.feat_scale
+    x = s / m.scale_seq
+    if m.sv.shape[-1] == 6:
+        return x
+    return torch.cat([x, epl / m.scale_wh, zeros3], dim=-1)
+
+
+def _khard_lanes(m: DeviceMaterial, g_feat):
+    """Per-lane work-hardening-rate contributions -sum_c dgrad_c
+    scale_seq/scale_wh over the plastic-strain features; the host's
+    scalar khard is their (masked) batch mean clipped at 0."""
+    return -torch.sum(g_feat[:, 6:12], dim=-1) * m.scale_seq / m.scale_wh
+
+
+def _jac_cyl(sp):
+    """Jacobian (N, 3, 3) of the (seq, theta, p) transform of principal
+    rows (the host ``Material._jac_cyl``), with its all-ones rows for
+    nearly hydrostatic states (vn <= 0.1)."""
+    av = torch.as_tensor(jt.a_vec, dtype=sp.dtype, device=sp.device)
+    bv = torch.as_tensor(jt.b_vec, dtype=sp.dtype, device=sp.device)
+    dev = jt.sig_dev(sp)
+    vn = torch.linalg.vector_norm(dev, dim=-1) * math.sqrt(1.5)
+    big = vn > 0.1
+    dseqds = 3. * dev / torch.where(big, vn, 1.)[:, None]
+    dsa = sp @ av
+    dsb = sp @ bv
+    den = dsa ** 2 + dsb ** 2
+    den = torch.where(den == 0., 1., den)
+    col1 = (bv[None, :] * dsa[:, None] - av[None, :] * dsb[:, None]) \
+        / den[:, None]
+    ones = torch.ones_like(dseqds)
+    big = big[:, None]
+    return torch.stack([torch.where(big, dseqds, ones),
+                        torch.where(big, col1, ones),
+                        torch.where(big, 1. / 3., ones)], dim=-1)
 
 
 def _svc_stress_grad(m: DeviceMaterial, sig, g_feat):
-    """Chain rule from feature space to stress space (host convention: the
-    stress-feature components / scale_seq, no deviatoric chain term)."""
+    """Chain rule from feature space to 6-D stress space (host
+    conventions): the stress-feature components over scale_seq, or over
+    the StandardScaler's per-component scales for texture materials, with
+    no deviatoric chain term; for cylindrical features (1, dtheta) mapped
+    through ``_jac_cyl`` into the normal components, the shear ones zero."""
+    if m.sv.shape[-1] == 2:
+        sp = jt.sig_princ_vals(sig) if sig.shape[-1] == 6 else sig
+        one = torch.ones_like(g_feat[:, 0])
+        vec = torch.stack([one, g_feat[:, 1], torch.zeros_like(one)], dim=-1)
+        a3 = torch.einsum('nij,nj->ni', _jac_cyl(sp), vec)
+        return torch.cat([a3, a3.new_zeros((sig.shape[0], 3))], dim=-1)
+    if m.tex.shape[0] > 0:
+        return g_feat[:, 0:6] / m.feat_scale[0:6]
     return g_feat[:, 0:6] / m.scale_seq
 
 
@@ -114,10 +200,19 @@ def hard_modulus(m: DeviceMaterial, peeq):
 
 
 def khard_of(m: DeviceMaterial, g_feat, mask=None):
-    """Hardening modulus: the material's static khard (work-hardening SVC
-    features, whose batch-mean rate the JAX twin derives, are not
-    supported)."""
-    return m.khard
+    """Hardening modulus: for work-hardening SVC features the batch mean
+    of ``_khard_lanes`` clipped at 0, a 0-d tensor like the host's
+    ``self.khard`` side effect (over the ``mask`` lanes when given); the
+    material's static khard otherwise.  Being a mean over the batch, it
+    makes a lane's result depend on the lanes beside it: the chunked
+    return maps keep the JAX package's chunks for such materials."""
+    if not m.is_svc or not _has_wh(m):
+        return m.khard
+    lanes = _khard_lanes(m, g_feat)
+    if mask is None:
+        return torch.clamp(torch.mean(lanes), min=0.)
+    cnt = torch.clamp(torch.sum(mask), min=1)
+    return torch.clamp(torch.sum(torch.where(mask, lanes, 0.)) / cnt, min=0.)
 
 
 # -----------------------------------------------------------------
@@ -186,17 +281,15 @@ def _seq_grad_analytic(m: DeviceMaterial, sig):
 
 
 def yf(m: DeviceMaterial, sig, peeq, epl=None):
-    """Yield function: SVC decision value or seq - sflow; sig (N, 6),
-    peeq (N,)."""
-    _require_ported(m)
+    """Yield function: SVC decision value or seq - sflow; sig (N, 6) (or
+    principal (N, 3) for cylindrical SVC features), peeq (N,)."""
     if m.is_svc:
         return svc_decision(m, _features(m, sig, epl))
     return seq_hill(m, sig) - flow_stress(m, peeq)
 
 
 def fgrad(m: DeviceMaterial, sig, epl=None):
-    """Yield-surface gradient in stress space; sig (N, 6)."""
-    _require_ported(m)
+    """Yield-surface gradient (N, 6) in stress space; sig as in ``yf``."""
     if m.is_svc:
         return _svc_stress_grad(m, sig,
                                 svc_gradient(m, _features(m, sig, epl)))
@@ -205,9 +298,9 @@ def fgrad(m: DeviceMaterial, sig, epl=None):
 
 def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     """Fused yield function + stress gradient + hardening modulus (one
-    kernel pass for SVC).  Returns (f, g (N, 6), khard: a float for SVC,
-    (N,) for analytic hardening)."""
-    _require_ported(m)
+    kernel pass for SVC).  Returns (f, g (N, 6), khard: a float for SVC, a
+    0-d tensor for work-hardening SVC features, (N,) for analytic
+    hardening)."""
     if m.is_svc:
         f, g = svc_decision_and_gradient(m, _features(m, sig, epl))
         return f, _svc_stress_grad(m, sig, g), khard_of(m, g)
@@ -215,26 +308,48 @@ def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     return seq - flow_stress(m, peeq), g, hard_modulus(m, peeq)
 
 
+def _root_features(m: DeviceMaterial, su, epl):
+    """Kernel G's feature map of the rows ``x * su``: the stress-derived
+    leading features (seq_J2 for cylindrical materials, the stress block
+    otherwise, through the texture scaler where there is one) and, as
+    per-lane constants, the features that stay fixed while the stress
+    scales: theta/pi of the direction (cylindrical; theta(x su) =
+    theta(su)), the plastic-strain block, the zero columns and the
+    texture (the host's ``find_yloc`` convention)."""
+    F = m.sv.shape[-1]
+    if F == 2:
+        return sk.FeatureMap(m.scale_seq, cyl=True,
+                             extra=_features(m, su)[:, 1:].contiguous())
+    tex = m.tex.shape[0] > 0
+    return sk.FeatureMap(
+        m.scale_seq, dev_only=m.dev_only,
+        mean=m.feat_mean[0:6].contiguous() if tex else None,
+        scale=m.feat_scale[0:6].contiguous() if tex else None,
+        extra=_features(m, su, epl)[:, 6:].contiguous() if F > 6 else None)
+
+
 def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None,
                root=sk.svc_yf_root):
-    """Distance of stresses to the SVC yield locus along their own loading
+    """Distance of stresses (Voigt (N, 6), or principal (N, 3) for a
+    cylindrical material) to the SVC yield locus along their own loading
     direction (the JAX ``ml_yf_dist``): geometric bracket marching (x0 *=
     0.98 down, x1 *= 1.02 up) then Brent, per lane in ``root`` (kernel G
     on the card, one launch and no host read; its plain version on the
     CPU, which ``root=sk.svc_yf_root_plain`` also runs on the card); lanes
     with a vanishing stress (``seq < 0.01``), no root or a root beyond 4
-    sflow take the fallback ``seq - 0.85 sflow``."""
-    seq = jt.seq_j2_voigt(sig)
+    sflow take the fallback ``seq - 0.85 sflow``.  The plastic-strain and
+    texture features stay fixed while the stress scales."""
+    _seq = jt.seq_j2_voigt if sig.shape[-1] == 6 else jt.seq_j2_princ
+    seq = _seq(sig)
     kh = m.khard if khard is None else khard
     sflow = m.sy + peeq * kh
     small = seq < 0.01
     su = sig / torch.where(small, 1., seq)[:, None]
     start = torch.where(su[:, 0] * su[:, 1] < -1.e-5, 0.5 * sflow, sflow)
     xs, ok = root(su, start, 5. * sflow, m.sv, m.dc, m.gamma, m.rho,
-                  m.scale_seq, m.dev_only, xtol=1.e-5)
+                  _root_features(m, su, epl), xtol=1.e-5)
     good = ok & (xs < 4. * sflow) & ~small
-    return torch.where(good, seq - xs * jt.seq_j2_voigt(su),
-                       seq - 0.85 * sflow)
+    return torch.where(good, seq - xs * _seq(su), seq - 0.85 * sflow)
 
 
 def yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None):
@@ -345,7 +460,6 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
 
     state = (sig (N, 6), epl (N, 6)); deps (N, 6); CV (6, 6) tensor.
     Returns (f_end, sig, depl, tangent (N, 6, 6))."""
-    _require_ported(m)
     sig0, epl0 = state
     dt = sig0.dtype
     N = sig0.shape[0]
@@ -450,19 +564,40 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
     return f_end, sig, depl, grad
 
 
-def response_fast_chunked(m: DeviceMaterial, state, deps, CV, maxiter=12,
-                          nsub=1, chunk=1 << 21):
-    """``response_fast`` over chunks of ``chunk`` points: bounds the live
-    per-point temporaries of very large batches.  Lanes are independent,
-    so chunking does not change any result."""
+#: the JAX package's chunk sizes of ``response_fast_chunked`` and
+#: ``response_chunked``, which work-hardening materials keep
+JAX_FAST_CHUNK = 1 << 21
+JAX_FAITHFUL_CHUNK = 65536
+
+
+def _chunked(m: DeviceMaterial, fn, state, deps, chunk):
+    """``fn(state, deps)`` over chunks of ``chunk`` points.  Lanes are
+    independent unless the material has work-hardening features, whose
+    batch-mean khard (``khard_of``) is taken over a chunk: for those the
+    batch is zero-padded to whole chunks, as the JAX package's
+    ``lax.map`` does, and the padded lanes enter the means; otherwise the
+    last chunk is ragged, which changes no result."""
     sig0, epl0 = state
     N = sig0.shape[0]
     if N <= chunk:
-        return response_fast(m, state, deps, CV, maxiter, nsub)
-    parts = [response_fast(m, (sig0[s:s + chunk], epl0[s:s + chunk]),
-                           deps[s:s + chunk], CV, maxiter, nsub)
+        return fn(state, deps)
+    arrays = (sig0, epl0, deps)
+    if m.is_svc and _has_wh(m):
+        pad = (-N) % chunk
+        arrays = tuple(torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+                       for a in arrays)
+    sig, epl, dep = arrays
+    parts = [fn((sig[s:s + chunk], epl[s:s + chunk]), dep[s:s + chunk])
              for s in range(0, N, chunk)]
-    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+    return tuple(torch.cat([p[i] for p in parts])[:N] for i in range(4))
+
+
+def response_fast_chunked(m: DeviceMaterial, state, deps, CV, maxiter=12,
+                          nsub=1, chunk=JAX_FAST_CHUNK):
+    """``response_fast`` over chunks of ``chunk`` points (``_chunked``):
+    bounds the live per-point temporaries of very large batches."""
+    return _chunked(m, lambda st, d: response_fast(m, st, d, CV, maxiter,
+                                                   nsub), state, deps, chunk)
 
 
 # -----------------------------------------------------------------
@@ -514,7 +649,6 @@ def response(m: DeviceMaterial, state, deps, CV):
     JAX runs all ``MAXIT`` substeps with the finished lanes frozen; this
     runs the largest substep count of any lane (one host read), which
     gives the same result.  Returns (fy, sig, depl, tangent (N, 6, 6))."""
-    _require_ported(m)
     sig0, epl0 = state
     N = sig0.shape[0]
     dt = sig0.dtype
@@ -589,17 +723,13 @@ def response(m: DeviceMaterial, state, deps, CV):
             torch.where(elastic[:, None, None], CV[None], grad))
 
 
-def response_chunked(m: DeviceMaterial, state, deps, CV, chunk=1 << 20):
-    """``response`` over chunks of ``chunk`` points (the last one ragged):
-    bounds the live per-point temporaries of very large batches.  Lanes
-    are independent, so chunking changes no result.  On the card the
+def response_chunked(m: DeviceMaterial, state, deps, CV, chunk=None):
+    """``response`` over chunks of ``chunk`` points (``_chunked``): bounds
+    the live per-point temporaries of very large batches.  On the card the
     kernels write no (N, nsv) matrix, so the default keeps 2^20 points,
-    one 1024^2 mesh, in one chunk."""
-    sig0, epl0 = state
-    N = sig0.shape[0]
-    if N <= chunk:
-        return response(m, state, deps, CV)
-    parts = [response(m, (sig0[s:s + chunk], epl0[s:s + chunk]),
-                      deps[s:s + chunk], CV)
-             for s in range(0, N, chunk)]
-    return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
+    one 1024^2 mesh, in one chunk; for work-hardening materials it is the
+    JAX package's ``JAX_FAITHFUL_CHUNK``, a part of their result."""
+    if chunk is None:
+        chunk = JAX_FAITHFUL_CHUNK if m.is_svc and _has_wh(m) else 1 << 20
+    return _chunked(m, lambda st, d: response(m, st, d, CV), state, deps,
+                    chunk)

@@ -31,8 +31,9 @@ import torch
 from pylabfea_tpu_torch.kernels import build
 
 SRC = 'svc_fgrad_mm.cu'
-#: the line of the launch rule before which a fixed form is inserted
-RULE = '  if (n <= sms * 8)\n'
+#: the line of the launch rule (inside its per-feature-count lambda)
+#: before which a fixed form is inserted
+RULE = '    const int chains = fm.n() + 1;\n'
 #: the record loop of svc_grad_accumulate
 UNROLL = ('svc_grad_accumulate(', '#pragma unroll 4')
 FORMS = {'GT=32': 'launch_group<T, 32>', 'GT=16': 'launch_group<T, 16>',
@@ -48,9 +49,8 @@ def _variant(name, dest):
     src = (build.CSRC_DIR / SRC).read_text()
     if name in FORMS:
         assert src.count(RULE) == 1, 'launch rule not found'
-        src = src.replace(RULE, f'  {FORMS[name]}(x, sv, dc, n, nsv, gamma, '
-                          'rho, f, g, s);\n  return (int)cudaGetLastError();'
-                          '\n' + RULE)
+        src = src.replace(RULE, f'    {FORMS[name]}(x, sv, dc, n, nsv, '
+                          'gamma, rho, f, g, fm, s);\n    return;\n' + RULE)
     else:
         hdr = os.path.join(dest, 'svc_eval.cuh')
         text = open(hdr).read()

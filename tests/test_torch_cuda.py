@@ -274,7 +274,9 @@ def test_yf_root_kernel_matches_plain(cuda, n, kind, dev_only, dtype):
     start = torch.full((n - 2,), mat.sy, dtype=dtype, device=cuda)
     evals = torch.zeros(n - 2, dtype=torch.int32, device=cuda)
     sk.svc_yf_root(su, start, 5. * start, mat.sv, mat.dc, mat.gamma,
-                   mat.rho, mat.scale_seq, mat.dev_only, evals=evals)
+                   mat.rho, sk.FeatureMap(mat.scale_seq,
+                                          dev_only=mat.dev_only),
+                   evals=evals)
     assert int(evals.min()) >= 1
     assert int(evals.max()) <= 1 + 2 * sk.MAXMARCH + sk.MAXITER
 
@@ -291,7 +293,7 @@ def test_yf_root_kernel_is_bitwise_the_eager_composition(cuda, dtype):
     start = torch.full((1022,), mat.sy, dtype=dtype, device=cuda)
     start[::3] *= 0.5
     args = (su, start, 5. * start, mat.sv, mat.dc, mat.gamma, mat.rho,
-            mat.scale_seq, mat.dev_only)
+            sk.FeatureMap(mat.scale_seq, dev_only=mat.dev_only))
 
     def f_of(x):
         return sk.svc_decision((x[:, None] * su) / mat.scale_seq, mat.sv,
@@ -383,8 +385,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         stencil.k_apply(Kp, u0[:-1].contiguous(), u1)
     x = torch.zeros(4, 5, device=cuda)
-    with pytest.raises(ValueError):
-        sk.svc_f_grad(x, torch.zeros(3, 5, device=cuda),
+    with pytest.raises(ValueError):                      # F of x != F of sv
+        sk.svc_f_grad(x, torch.zeros(3, 6, device=cuda),
                       torch.zeros(3, device=cuda), 1., 0.)
     with pytest.raises(TypeError):
         sk.svc_f_grad(torch.zeros(4, 6, device=cuda),
@@ -402,18 +404,19 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     svs = (torch.zeros(3, 6, device=cuda), torch.zeros(3, device=cuda))
     with pytest.raises(ValueError):                      # start not (N,)
         sk.svc_yf_root(su, torch.zeros(5, device=cuda),
-                       torch.zeros(4, device=cuda), *svs, 1., 0., 1., False)
+                       torch.zeros(4, device=cuda), *svs, 1., 0.,
+                       sk.FeatureMap(1.))
     with pytest.raises(TypeError):                       # top float64
         sk.svc_yf_root(su, torch.zeros(4, device=cuda),
                        torch.zeros(4, device=cuda, dtype=torch.float64),
-                       *svs, 1., 0., 1., False)
+                       *svs, 1., 0., sk.FeatureMap(1.))
     with pytest.raises(ValueError):                      # evals not int32
         sk.svc_yf_root(su, torch.zeros(4, device=cuda),
-                       torch.zeros(4, device=cuda), *svs, 1., 0., 1., False,
-                       evals=torch.zeros(4, device=cuda))
+                       torch.zeros(4, device=cuda), *svs, 1., 0.,
+                       sk.FeatureMap(1.), evals=torch.zeros(4, device=cuda))
     for fn in (sk.svc_decision, sk.svc_f_grad_mm):
         with pytest.raises(ValueError):
-            fn(x, torch.zeros(3, 5, device=cuda), torch.zeros(3, device=cuda),
+            fn(x, torch.zeros(3, 6, device=cuda), torch.zeros(3, device=cuda),
                1., 0.)
         with pytest.raises(TypeError):
             fn(torch.zeros(4, 6, device=cuda),
@@ -526,3 +529,85 @@ def test_inclusion_step_on_the_card_matches_the_cpu(cuda):
     assert float((sa - sb).abs().max()) <= 1e-9 * float(sb.abs().max())
     assert float((ga - gb).abs().max()) <= 1e-9 * float(gb.abs().max())
     assert float(sb.abs().max()) > 0
+
+
+#: feature counts of the SVC kernels' forms: compiled for 2, 6 and 15,
+#: F a launch argument up to 32 (registers) and beyond (local memory)
+WIDTHS = (1, 2, 9, 15, 16, 33, 40, sk.MAX_NFEAT)
+
+
+@pytest.mark.parametrize('dtype,tol', [(torch.float32, 2e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize('n', [1, 1000, 9000, 4 * 132 * 1024 + 5])
+@pytest.mark.parametrize('F', WIDTHS)
+def test_svc_kernels_match_plain_at_every_width(cuda, F, n, dtype, tol):
+    """Kernels A, D and E at F features against the plain float64 version
+    (each launch form: a group of threads a point for E at small n, one
+    to four points a thread at large n), with the bounds of the 6-feature
+    tests; each launch is counted under its width."""
+    rng = np.random.default_rng(F)
+    sv64 = torch.as_tensor(rng.normal(size=(300, F)) * 0.5,
+                           dtype=torch.float64, device=cuda)
+    dc64 = torch.as_tensor(rng.uniform(-1., 1., 300), dtype=torch.float64,
+                           device=cuda)
+    x64 = torch.as_tensor(rng.normal(size=(n, F)) * 0.5,
+                          dtype=torch.float64, device=cuda)
+    x, sv, dc = x64.to(dtype), sv64.to(dtype), dc64.to(dtype)
+    before = [k.launches_by_nfeat[F] for k in
+              (sk.svc_f_grad, sk.svc_decision, sk.svc_f_grad_mm)]
+    fa, ga = sk.svc_f_grad(x, sv, dc, 0.7, 0.1)
+    fd = sk.svc_decision(x, sv, dc, 0.7, 0.1)
+    fe, ge = sk.svc_f_grad_mm(x, sv, dc, 0.7, 0.1)
+    torch.cuda.synchronize()
+    assert [k.launches_by_nfeat[F] for k in
+            (sk.svc_f_grad, sk.svc_decision, sk.svc_f_grad_mm)] \
+        == [b + 1 for b in before]
+    fr, gr = sk.svc_f_grad_plain(x64, sv64, dc64, 0.7, 0.1)
+    bound = tol * max(1., float(dc64.abs().sum()))
+    gbound = bound * 2. * 0.7 * float(x64.abs().max() + sv64.abs().max())
+    for f in (fa, fd, fe):
+        assert float((f.double() - fr).abs().max()) <= bound
+    for g in (ga, ge):
+        assert float((g.double() - gr).abs().max()) <= gbound
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('name', ['svc_wh', 'svc_cyl', 'svc_tex_gsh3',
+                                  'svc_tex_adv'])
+def test_yf_root_kernel_matches_plain_on_every_layout(cuda, name, dtype):
+    """Kernel G through ``ml_yf_dist`` on the trained fixtures (work
+    hardening with a plastic strain, cylindrical, texture) against its
+    plain version, under the rule of the 6-feature test."""
+    mat = convert.material_from_npz(os.path.join(
+        ROOT, 'pylabfea_tpu_torch', 'data', name + '.npz'), dtype=dtype,
+        device=cuda)[0]
+    rng = np.random.default_rng(4)
+    n = 2048
+    sig = torch.as_tensor(rng.normal(0., 90., (n, 6)), dtype=dtype,
+                          device=cuda)
+    epl = torch.as_tensor(rng.normal(0., 2e-3, (n, 6)), dtype=dtype,
+                          device=cuda)
+    peeq = torch.zeros(n, dtype=dtype, device=cuda)
+    g0 = sk.svc_yf_root.launches_by_nfeat[mat.sv.shape[1]]
+    d = con.ml_yf_dist(mat, sig, peeq, epl)
+    ref = con.ml_yf_dist(mat, sig, peeq, epl, root=sk.svc_yf_root_plain)
+    torch.cuda.synchronize()
+    assert sk.svc_yf_root.launches_by_nfeat[mat.sv.shape[1]] == g0 + 1
+    tol = (1e-6 if dtype == torch.float64 else 1e-3) * float(ref.abs().max())
+    agree = (d - ref).abs() <= tol
+    assert bool(torch.isfinite(d).all())
+    if dtype == torch.float64:
+        assert bool(agree.all())
+    else:
+        assert int(agree.sum()) >= 0.75 * n
+
+
+def test_wrappers_reject_feature_counts_out_of_range(cuda):
+    x = torch.zeros(4, sk.MAX_NFEAT + 1, device=cuda)
+    sv = torch.zeros(3, sk.MAX_NFEAT + 1, device=cuda)
+    for fn in (sk.svc_f_grad, sk.svc_decision, sk.svc_f_grad_mm):
+        with pytest.raises(ValueError):
+            fn(x, sv, torch.zeros(3, device=cuda), 1., 0.)
+        with pytest.raises(ValueError):
+            fn(x[:, :0].contiguous(), sv[:, :0].contiguous(),
+               torch.zeros(3, device=cuda), 1., 0.)

@@ -264,22 +264,15 @@ def test_analytic_material_from_its_own_leaves():
 
 def test_unported_options_raise():
     """What stays unported of the 3-D path raises: Tresca (no analytic
-    flow gradient) and SVC features other than 6-D stresses, here
-    work-hardening ones, in a grouped 3-D step."""
+    flow gradient) and SVC feature widths that the JAX device path does
+    not serve (its 2, 6, 15, 6 + tdim and 15 + tdim are ported)."""
     dm, mat, CV = _j2()
     params = {k: np.asarray(v) for k, v in dm._asdict().items()
               if k not in ('is_svc', 'dev_only', 'sdim3')}
     with pytest.raises(NotImplementedError):
         convert.material_from_params(dict(params, tresca=True),
                                      is_svc=False, **T64)
-    wh = tcon.DeviceMaterial(**{**mat.__dict__, 'is_svc': True,
-                                'sv': torch.zeros(3, 15,
-                                                  dtype=torch.float64)})
-    with pytest.raises(NotImplementedError):
-        tcon.yf(wh, torch.zeros(2, 6, dtype=torch.float64),
-                torch.zeros(2, dtype=torch.float64))
-    mt = tfe3d.box_mesh(2, 2, 2, mat_map=np.arange(8).reshape(2, 2, 2) % 2,
-                        **T64)
-    st = tfe3d.init_state3(mt, (CV, CV), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        tfe3d.load_step3(mt, st, (mat, wh), (CV, CV), 0.5)
+    with pytest.raises(NotImplementedError, match='got Ndof=7'):
+        convert.material_from_params(dict(params, sv=np.zeros((3, 7)),
+                                          dc=np.zeros(3)), is_svc=True,
+                                     **T64)

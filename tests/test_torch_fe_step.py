@@ -3,7 +3,6 @@ the JAX reference at 32 x 32 in float64 with the trained SVC of
 REF_SOLVE_svc.npz.  Every JAX mesh is built fresh with ``rect_mesh`` (its
 coarse-mesh chain cache would serve a stale mesh for ``_replace`` copies).
 """
-import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -153,18 +152,17 @@ def test_solve_uniaxial_matches_jax():
 
 
 def test_unported_options_raise():
-    """What stays unported of the 2-D step raises: SVC features other than
-    6-D stresses (cylindrical, work hardening, texture) reach the return
-    map only through a hand-built material; plane stress without its
-    reduced stiffness is refused as in the JAX package."""
-    mat, CV, _ = convert.material_from_npz(NPZ, dtype=torch.float64,
-                                           device='cpu')
-    mt = tfek.rect_mesh(4, 4, dtype=torch.float64, device='cpu')
-    st = tfek.init_state(mt, CV, dtype=torch.float64)
-    for nf in (2, 15):
-        cyl = dataclasses.replace(mat, sv=torch.zeros(3, nf,
-                                                      dtype=torch.float64))
-        with pytest.raises(NotImplementedError):
-            tfek.load_step_split(mt, st, cyl, CV, 0.5)
+    """What stays unported of the 2-D step raises: SVC feature widths
+    that the JAX device path does not serve (its cylindrical, stress,
+    work-hardening and texture layouts are ported); plane stress without
+    its reduced stiffness is refused as in the JAX package."""
+    with np.load(NPZ) as z:
+        params = dict(hill=np.ones(6), sy=float(z['sy']), khard=0.,
+                      drucker=0., sv=np.zeros((3, 7)), dc=np.zeros(3),
+                      rho=0., gamma=1., scale_seq=float(z['scale_seq']))
+    for nf in (1, 7, 14):
+        with pytest.raises(NotImplementedError, match=f'got Ndof={nf}'):
+            convert.material_from_params(dict(params, sv=np.zeros((3, nf))),
+                                         is_svc=True, device='cpu')
     with pytest.raises(ValueError):
         tfek.rect_mesh(4, 4, planestress=True, device='cpu')

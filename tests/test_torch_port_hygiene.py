@@ -47,11 +47,17 @@ j2 = convert.material_from_params(dict(hill=[1.] * 6, sy=150., khard=500.,
                                        drucker=0.), is_svc=False, **cpu)
 md3 = fe3d.box_mesh(2, 2, 2, eps_tot=0.002, **cpu)
 state3, hist3 = fe3d.solve_uniaxial3(md3, j2, CV, nsteps=2, n_inner=1)
+dist = []
+for name in ('svc_wh', 'svc_cyl', 'svc_tex_gsh3', 'svc_tex_adv'):
+    m, _, _ = convert.material_from_npz(
+        f'pylabfea_tpu_torch/data/{name}.npz', **f64)
+    s = torch.linspace(-90., 120., 12, dtype=torch.float64).reshape(2, 6)
+    dist.append(constitutive.ml_yf_dist(m, s, torch.zeros(2, **f64)))
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
 assert not bad, bad
 print('clean', float(hist[-1][0][1]), float(hist4[-1][0][1]),
-      float(hist3[-1][0][2]))
+      float(hist3[-1][0][2]), [float(d[0]) for d in dist])
 """
 
 
@@ -170,7 +176,7 @@ def test_other_devices_raise_instead_of_falling_back():
     with pytest.raises(TypeError):
         sk.svc_yf_root(torch.empty(7, 6, **meta), torch.empty(7, **meta),
                        torch.empty(7, **meta), torch.empty(5, 6, **meta),
-                       torch.empty(5, **meta), 2.5, 0.1, 150., False)
+                       torch.empty(5, **meta), 2.5, 0.1, sk.FeatureMap(150.))
     with pytest.raises(TypeError):
         volume.k_apply3(torch.empty(36, 2, 2, 2, **meta),
                         *(torch.empty(3, 3, 3, **meta) for _ in range(3)),

@@ -212,6 +212,8 @@ def test_material_from_npz_matches_params():
 
 
 def test_unported_materials_raise():
+    """Criteria without a device form and SVC feature widths the JAX device
+    path does not serve raise; its five layouts convert."""
     dm = _jax_material()
     params = {k: np.asarray(v) for k, v in dm._asdict().items()
               if k not in ('is_svc', 'dev_only', 'sdim3')}
@@ -221,15 +223,19 @@ def test_unported_materials_raise():
         with pytest.raises(NotImplementedError):
             convert.material_from_params(dict(params, **crit), is_svc=False,
                                          **cpu)
-    # sdim=3 SVC features are the cylindrical (seq, theta) ones
-    with pytest.raises(NotImplementedError):
-        convert.material_from_params(params, is_svc=True, sdim3=True, **cpu)
-    with pytest.raises(NotImplementedError):
-        convert.material_from_params(dict(params, sv=np.ones((4, 2))),
-                                     is_svc=True, **cpu)
-    with pytest.raises(NotImplementedError):
-        convert.material_from_params(dict(params, tex=np.ones(3)),
-                                     is_svc=True, **cpu)
-    with pytest.raises(NotImplementedError):
-        convert.material_from_params(dict(params, sv=np.ones((4, 15))),
-                                     is_svc=True, **cpu)
+    for bad in (dict(sv=np.ones((4, 7))), dict(sv=np.ones((4, 3))),
+                dict(tex=np.ones(3)),
+                dict(sv=np.ones((4, 9)), tex=np.ones(3),
+                     feat_mean=np.zeros(9), feat_scale=np.ones(8))):
+        with pytest.raises(NotImplementedError, match='got Ndof='):
+            convert.material_from_params(dict(params, **bad), is_svc=True,
+                                         **cpu)
+    for good in (dict(sv=np.ones((4, 2))), dict(sv=np.ones((4, 15))),
+                 dict(sv=np.ones((4, 9)), tex=np.ones(3),
+                      feat_mean=np.zeros(9), feat_scale=np.ones(9)),
+                 dict(sv=np.ones((4, 18)), tex=np.ones(3),
+                      feat_mean=np.zeros(18), feat_scale=np.ones(18))):
+        mat = convert.material_from_params(dict(params, **good, dc=np.ones(4)),
+                                           is_svc=True, sdim3=True, **cpu)
+        assert mat.sv.shape == good['sv'].shape
+        assert mat.tex.shape == np.shape(good.get('tex', np.zeros(0)))

@@ -88,7 +88,8 @@ def _categories(mat, sig, peeq, khard):
     small = seq < 0.01
     su = sig / torch.where(small, 1., seq)[:, None]
     start = torch.where(su[:, 0] * su[:, 1] < -1.e-5, 0.5 * sflow, sflow)
-    args = (mat.sv, mat.dc, mat.gamma, mat.rho, mat.scale_seq, mat.dev_only)
+    args = (mat.sv, mat.dc, mat.gamma, mat.rho,
+            sk.FeatureMap(mat.scale_seq, dev_only=mat.dev_only))
     xs, ok = sk.svc_yf_root_plain(su, start, 5. * sflow, *args)
 
     def f_of(x):
@@ -170,7 +171,7 @@ def test_plain_root_finder_has_no_kernel_launches():
     su = torch.nn.functional.normalize(torch.tensor(sig[8:]), dim=-1)
     start = torch.full((N - 8,), 150., dtype=torch.float64)
     args = (su, start, 5. * start, mat.sv, mat.dc, mat.gamma, mat.rho,
-            mat.scale_seq, False)
+            sk.FeatureMap(mat.scale_seq))
     xs, ok = sk.svc_yf_root(*args)
     xp, okp = sk.svc_yf_root_plain(*args)
     assert torch.equal(xs, xp) and torch.equal(ok, okp)
