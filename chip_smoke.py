@@ -68,13 +68,29 @@ used.  Phases, each of which must pass:
    ``response_fast`` on 2^20 states and ``ml_yf_dist`` on 2^16 (A, D, G),
    64 lanes of each against the CPU; 13e. float64 card against CPU: the
    13a/13b steps at 64 x 64 (1e-9, the same CG histories) and the
-   cylindrical faithful solve at 8 x 8 (1e-6).
+   cylindrical faithful solve at 8 x 8 (1e-6);
+14. training and inverse identification: 14a. ``ml_train.train_svc`` on
+   the card (f32, 4000 iterations) on the ~15,000-point Hill training set
+   of ``examples/train_hill.py`` (``pylabfea_tpu_torch/data/
+   train_hill.npz``), its accuracy and its decision values against the
+   JAX trainer's on a probe set; 14b. that SVC served: ``ml_yf_dist``
+   (kernel G) against the analytic Hill locus, ``response_fast`` on 2^20
+   states (A) and one warm 1024 x 1024 step (A, B, D), which must launch
+   A, B, D and G, then G on the same stresses and A and D at 2^20 points
+   against their plain versions at the trained SVC's size; 14c. ``calibrate.fit_plasticity`` round trips on 1024 paths x
+   30 steps simulated on the card (f64 and f32 unrolled, f64 implicit)
+   under the JAX package's round-trip tolerances; 14d. ``femu.fit_field``
+   on the 16 x 16 two-material inclusion (sy and hill[0] within 1e-6);
+   14e. f64 card against CPU at small size: ``simulate_paths``, one
+   ``step_implicit`` with one forward-mode column, ``fit_svc``'s dual
+   variables (1e-9); no CUDA-graph capture of phase 14 may fail.
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after (also by feature count, ``launches_by_nfeat``).  The last
 two lines are a JSON object with every kernel's launches, error, times and
 bound (a kernel at another feature count than 6 as ``name[F=n]``, with its
-launches on the path of phase 13 that ran it), and ``{"ok": true,
+launches on the path of phase 13 that ran it; A, D and G at the SVC
+trained in 14a as ``name[card-trained]``, with their launches in 14b), and ``{"ok": true,
 "device": {...}}``.
 Any failure raises and exits non-zero without those lines.
 """
@@ -146,6 +162,20 @@ def graph_ms(fn, reps):
         for _ in range(reps):
             fn()
     return timed_ms(graph.replay, 3) / reps
+
+
+def by_rows(fn, x, rows):
+    """``fn`` on ``x``, in chunks of ``rows`` rows where ``rows`` is given
+    (the plain SVC versions' (N, nsv) matrices at 2^20 points x thousands
+    of SVs outgrow the card's memory)."""
+    if rows is None:
+        return fn(x)
+    for i in range(0, x.shape[0], rows):
+        fn(x[i:i + rows])
+
+
+def chunks(rows):
+    return '' if rows is None else f' (in chunks of {rows} points)'
 
 
 def bound_ms(nbytes, flops):
@@ -355,10 +385,11 @@ def check_kapply3(device, shape, dtype, rtol, reps, card):
     return err, ms, pms, bnd
 
 
-def check_svc(device, N, params, reps, card, n_ref=None):
+def check_svc(device, N, params, reps, card, n_ref=None, plain_rows=None):
     """Kernel A at N points against its plain float64 version (on the
     first ``n_ref`` points, all by default: the plain version's (N, nsv)
-    matrices), then kernel and plain float32 times and the bound."""
+    matrices), then kernel and plain float32 times (the plain one in
+    chunks of ``plain_rows`` points where given) and the bound."""
     import torch
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     rng = np.random.default_rng(2)
@@ -394,8 +425,8 @@ def check_svc(device, N, params, reps, card, n_ref=None):
                  'version')
         errs.append(max(ef, eg))
     ms = timed_ms(lambda: sk.svc_f_grad(x, sv, dc, gamma, rho), reps)
-    pms = timed_ms(lambda: sk.svc_f_grad_plain(x, sv, dc, gamma, rho),
-                   max(reps // 4, 1))
+    pms = timed_ms(lambda: by_rows(lambda xx: sk.svc_f_grad_plain(
+        xx, sv, dc, gamma, rho), x, plain_rows), max(reps // 4, 1))
     nsv, F = sv.shape
     gexp = N * nsv / (ms * 1e-3) / 1e9
     # x, sv, dc read, f and g written once; 5F + 4 flops per point-SV pair
@@ -405,8 +436,8 @@ def check_svc(device, N, params, reps, card, n_ref=None):
                    N * nsv * (5 * F + 4))
     log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} F={F} f32 with_grad: '
         f'kernel {ms:.4f} ms ({gexp:.1f} G point-SV pairs/s), plain '
-        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
-        f'of it)  [{card}]')
+        f'{pms:.4f} ms{chunks(plain_rows)}, bound {bnd[0]:.4f} ms '
+        f'({bnd[1]}, {bnd[0] / ms:.0%} of it)  [{card}]')
     if N <= SMALL_N:
         dms = graph_ms(lambda: sk.svc_f_grad(x, sv, dc, gamma, rho), reps)
         log(f'[3 kernel A] svc_f_grad N={N} nsv={nsv} f32 with_grad: '
@@ -415,13 +446,15 @@ def check_svc(device, N, params, reps, card, n_ref=None):
     return max(errs), ms, pms, bnd
 
 
-def check_svc_mm(device, N, params, reps, card, which, n_ref=None):
+def check_svc_mm(device, N, params, reps, card, which, n_ref=None,
+                 plain_rows=None):
     """Kernel D (``which='D'``, the decision function) or E (``'E'``, value
     and gradient), both with matmul-expansion distances: f32 at N points
     against the plain f64 version under kernel A's bounds, f64 at 4099
     points against the plain f64 version (1e-12 max(1, sum|dc|)), then
     kernel and plain f32 times and the bound.  The f32 comparison takes
-    the first ``n_ref`` points (all by default)."""
+    the first ``n_ref`` points (all by default); the plain version is
+    timed in chunks of ``plain_rows`` points where given."""
     import torch
     from pylabfea_tpu_torch.ops import svc_kernels as sk
     rng = np.random.default_rng(2)
@@ -467,7 +500,8 @@ def check_svc_mm(device, N, params, reps, card, which, n_ref=None):
                  'plain version')
         errs.append(max(ef, eg))
     ms = timed_ms(lambda: kern(x, sv, dc), reps)
-    pms = timed_ms(lambda: plain(x, sv, dc), max(reps // 4, 1))
+    pms = timed_ms(lambda: by_rows(lambda xx: plain(xx, sv, dc), x,
+                                   plain_rows), max(reps // 4, 1))
     nsv, F = sv.shape
     # x, sv, dc read, f (and g) written once.  Operations per point-SV
     # pair: 2F of the cross term's F multiply-adds, 3 of the distance (an
@@ -480,8 +514,8 @@ def check_svc_mm(device, N, params, reps, card, which, n_ref=None):
     log(f'[3 kernel {which}] {name} N={N} nsv={nsv} F={F} f32: kernel '
         f'{ms:.4f} ms ({N * nsv / (ms * 1e-3) / 1e9:.1f} G point-SV '
         f'pairs/s), plain '
-        f'{pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, {bnd[0] / ms:.0%} '
-        f'of it)  [{card}]')
+        f'{pms:.4f} ms{chunks(plain_rows)}, bound {bnd[0]:.4f} ms '
+        f'({bnd[1]}, {bnd[0] / ms:.0%} of it)  [{card}]')
     if N <= SMALL_N:
         dms = graph_ms(lambda: kern(x, sv, dc), reps)
         log(f'[3 kernel {which}] {name} N={N} nsv={nsv} f32: device '
@@ -549,10 +583,11 @@ def check_brent_step(device, N, reps, card):
     return err, ms, pms, bnd
 
 
-def check_yf_root(device, N, mat_of, reps, card, label):
+def check_yf_root(device, N, mat_of, reps, card, label, sig_np=None):
     """Kernel G against its plain version on the card, both through
     ``ml_yf_dist`` on N stresses at 0.3-2 sy along random directions
-    (inside, across and outside the locus).  Float64: every finite lane's
+    (inside, across and outside the locus), or on the N stresses
+    ``sig_np`` where given.  Float64: every finite lane's
     distance within 1e-6 of the distances' scale (a Brent iterate that
     flips moves a root by up to xtol), the same lanes finite.  Float32:
     phase 4's rule, at most 1e-3 of the lanes non-finite and at least 48
@@ -568,7 +603,8 @@ def check_yf_root(device, N, mat_of, reps, card, label):
     rng = np.random.default_rng(4)
     u = rng.normal(size=(N, 6))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    sig_np = u * SY * rng.uniform(0.3, 2.0, (N, 1))
+    sig_np = u * SY * rng.uniform(0.3, 2.0, (N, 1)) if sig_np is None \
+        else sig_np
     epl_np = rng.normal(0., 2e-3, (N, 6))
     pick = np.random.default_rng(5).choice(N, 64, replace=False)
     errs, seen = [], {}
@@ -1685,6 +1721,380 @@ def phase_layouts_card_vs_cpu(device, card, NB=64, NF=8):
         fail('card and CPU disagree on the cylindrical faithful solve')
 
 
+# -----------------------------------------------------------------
+# training and inverse identification (phases 14a-14e)
+# -----------------------------------------------------------------
+#: the Hill training set of ``examples/train_hill.py`` with the JAX
+#: trainer's decision values on a probe set
+#: (``tools/make_torch_svc_fixtures.py``)
+TRAIN = os.path.join(DATA, 'train_hill.npz')
+#: the hidden material of ``examples/calibrate_plasticity.py``
+CAL_HILL, CAL_SY, CAL_KHARD = (1.3, 0.85, 1., 1., 1., 1.), 180., 800.
+
+
+def phase_train(device, card):
+    """14a: ``ml_train.train_svc`` on the card in float32 at the JAX
+    backend's 4000 iterations on the ~15,000 points of ``TRAIN``: its
+    seconds (the projected-gradient steps read the N x N matrix Q once
+    each), its training accuracy (at least 97 %), and its decision values
+    on the probe set against the JAX trainer's (within 1e-2 of their
+    scale, 99 % of the signs equal)."""
+    import torch
+    from pylabfea_tpu_torch import ml_train
+    from pylabfea_tpu_torch.ops import constitutive as con
+    z = np.load(TRAIN)
+    X, y = z['X'], z['y'].astype(np.float32)
+    n, iters = len(y), int(z['iters'])
+    sync(device)
+    t0 = time.perf_counter()
+    mat, score, params = ml_train.train_svc(
+        X, y, float(z['sy']), C=float(z['C']), gamma=float(z['gamma']),
+        iters=iters, dtype=torch.float32, device=device)
+    sync(device)
+    dt = time.perf_counter() - t0
+    f = con.svc_decision(mat, torch.as_tensor(
+        z['probe'], dtype=torch.float32, device=device)).double().cpu()
+    fj = torch.as_tensor(z['f_probe_jax'])
+    err = float((f - fj).abs().max() / fj.abs().max())
+    same = float((torch.sign(f) == torch.sign(fj)).double().mean())
+    q_bytes = 4. * n * n * iters
+    ok = score >= 97. and err <= 1e-2 and same >= 0.99
+    log(f'[14a train] ml_train.train_svc on {n} points (Hill rv '
+        f'{[float(v) for v in z["rv"]]}, sy {float(z["sy"]):g}; C {float(z["C"]):g}, gamma '
+        f'{float(z["gamma"]):g}, {iters} iterations, f32): {dt:.3f} s '
+        f'(Q read {iters} times, {q_bytes / 1e12:.2f} TB: HBM bound '
+        f'{q_bytes / HBM_BPS:.3f} s); training accuracy {score:.2f} % (JAX '
+        f'{float(z["acc_jax"]):.2f} %), {params["sv"].shape[0]} SVs (JAX '
+        f'{int(z["nsv_jax"])}); decision values on {len(fj)} probe points '
+        f'vs the JAX trainer: max rel err {err:.3e} (bound 1e-2), same sign '
+        f'{100 * same:.2f} % {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('the SVC trained on the card misses its accuracy or the JAX '
+             "trainer's decision values")
+    return dict(mat=mat, params=params, seconds=dt, score=score,
+                CV=z['CV'], X=X, hill=z['hill'])
+
+
+def phase_serve_trained(device, trained, NB, card):
+    """14b: the SVC of 14a through kernels G, A, D and B: ``ml_yf_dist``
+    on 256 training directions against the analytic Hill locus of its
+    reference (at least 95 % of them within 0.05, the half gap between
+    the training bands at 0.95 and 1.05 of the locus, and the median
+    within 0.01: the fit misclassifies 0.08 % of its points, the JAX
+    trainer's too, so a few directions lie further out), ``response_fast``
+    on 2^20 states (64 lanes against the CPU under phase 4's rule) and
+    one warm NB x NB step of phase 5's protocol with sigma_yy in (0.5 sy,
+    2 sy).  Every count is set to 0 before these and read after.  Then
+    G, A and D against their plain versions at those shapes (phase 3's
+    rules), with their times and bounds."""
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    from pylabfea_tpu_torch.ops import jtensors as jt
+    f32 = torch.float32
+    mat, X = trained['mat'], trained['X']
+    sy = mat.sy
+    CV = torch.as_tensor(trained['CV'], dtype=f32, device=device)
+    rows = np.random.default_rng(8).choice(len(X), 256, replace=False)
+    u = torch.as_tensor(X[rows], dtype=torch.float64)
+    u = u / jt.seq_j2_voigt(u)[:, None]
+    hill = convert.material_from_params(
+        dict(hill=trained['hill'], sy=sy, khard=0., drucker=0.),
+        is_svc=False, dtype=torch.float64, device='cpu')
+    s_hill = sy / con.seq_hill(hill, u)
+    N = 2 ** 20
+    sig_np, deps_np = return_map_states(N, sy=sy)
+    sig = torch.as_tensor(sig_np, dtype=f32, device=device)
+    deps = torch.as_tensor(deps_np, dtype=f32, device=device)
+    md = fek.rect_mesh(NB, NB, LX=1., LY=1., uniax='y', eps_tot=0.002,
+                       dtype=f32, device=device)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    dist = con.ml_yf_dist(mat, (u * sy).to(device=device, dtype=f32),
+                          torch.zeros(len(rows), dtype=f32, device=device))
+    sync(device)
+    t1 = time.perf_counter()
+    out = con.response_fast(mat, (sig, torch.zeros_like(sig)), deps, CV, 12)
+    sync(device)
+    t2 = time.perf_counter()
+    st, d, times, iters, widths, _ = layout_steps(md, mat, CV, f32, 1,
+                                                  device)
+    launches = {c.__name__: c.launches for c in counters()}
+    s_ml = sy - dist.double().cpu()
+    lerr = (s_ml - s_hill).abs() / s_hill
+    mc = convert.material_from_params(
+        dict(hill=np.ones(6), sy=sy, khard=0., drucker=0., scale_seq=sy,
+             **trained['params']), is_svc=True, dtype=f32, device='cpu')
+    pick = np.random.default_rng(5).choice(N, 64, replace=False)
+    ref = con.response_fast(mc, (torch.as_tensor(sig_np[pick], dtype=f32),
+                                 torch.zeros(64, 6)),
+                            torch.as_tensor(deps_np[pick], dtype=f32),
+                            CV.cpu(), 12)
+    na, ea = lanes_vs_cpu(out, ref, pick)
+    nbad = sum(int((~torch.isfinite(o.reshape(N, -1))).any(-1).sum())
+               for o in out)
+    gsig = d['glob_sig'].double().cpu().numpy()
+    fin = finite(st.u, st.sig, st.epl, st.elstiff, dist)
+    within = float((lerr <= 0.05).double().mean())
+    ok = (fin and within >= 0.95 and float(lerr.median()) <= 0.01
+          and na >= 48
+          and nbad <= 1e-3 * N and 0.5 * sy < gsig[1] < 2. * sy
+          and all(launches[k] > 0 for k in ('svc_yf_root', 'svc_f_grad',
+                                            'svc_decision', 'k_apply')))
+    log(f'[14b serve trained] ml_yf_dist on {len(rows)} training directions '
+        f'{(t1 - t0) * 1e3:.2f} ms: locus vs the analytic Hill locus rel '
+        f'err median {float(lerr.median()):.3e} (bound 1e-2), within 0.05 '
+        f'{100 * within:.1f} % (bound 95 %), max {float(lerr.max()):.3e}; '
+        f'response_fast N={N} {(t2 - t1) * 1e3:.2f} ms, plastic '
+        f'lanes {int((out[2].abs().sum(-1) > 0).sum())}, non-finite lanes '
+        f'{nbad}, vs the CPU on 64 lanes {na} agree (max rel err of f, sig, '
+        f'depl, tangent {", ".join(f"{e:.2e}" for e in ea)}); {NB}x{NB} '
+        f'load_step_split(0.25, n_inner=2) warm step {times[0]:.4f} s, '
+        f'cg_iters_hist {iters}, glob_sig '
+        f'{np.array2string(gsig, precision=4, max_line_width=200)}; '
+        f'launches {launches} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('the trained SVC: locus off the Hill reference, CPU '
+             'disagreement, non-finite fields, axial stress out of range or '
+             'kernels A/B/D/G not launched')
+    # kernels A, D and G against their plain versions at the shapes this
+    # path gave them: G on the same 256 stresses (float32 under phase 4's
+    # rule, float64 within 1e-6), A and D at 2^20 points x the trained SVs
+    # (float32 against the plain float64 version on the first 2^16 points)
+    pfix = {k: trained['params'][k] for k in ('sv', 'dc', 'gamma', 'rho')}
+
+    def mat_of(dtype):
+        return convert.material_from_params(
+            dict(hill=np.ones(6), sy=sy, khard=0., drucker=0., scale_seq=sy,
+                 **trained['params']), is_svc=True, dtype=dtype,
+            device=device)
+
+    checks = dict(
+        svc_f_grad=[check_svc(device, N, pfix, 10, card, n_ref=2 ** 16,
+                              plain_rows=2 ** 17)],
+        svc_decision=[check_svc_mm(device, N, pfix, 10, card, 'D',
+                                   n_ref=2 ** 16, plain_rows=2 ** 17)],
+        svc_yf_root=[check_yf_root(device, len(rows), mat_of, 20, card,
+                                   'card-trained',
+                                   sig_np=(u * sy).numpy())])
+    return dict(launches=launches, step_s=times[0], locus_err=float(
+        lerr.max()), checks=checks)
+
+
+def cal_paths(npaths, nsteps, seed=0):
+    """Strain paths (npaths, nsteps, 6): random unit directions, five
+    small steps through the yield onset, then 1.6e-3 steps (the JAX
+    package's Voce round trip)."""
+    rng = np.random.default_rng(seed)
+    dirs = rng.normal(size=(npaths, 6))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    steps = np.full(nsteps, 1.6e-3)
+    steps[:5] = 2.5e-4
+    return dirs[:, None, :] * steps[None, :, None]
+
+
+def cal_theta(dtype, device):
+    import torch
+    t = dict(log_sy=np.log(CAL_SY), log_hill=np.log(CAL_HILL),
+             raw_dsy=CAL_KHARD)          # softplus(800) is 800 in float64
+    return {k: torch.as_tensor(np.asarray(v, float), dtype=dtype,
+                               device=device) for k, v in t.items()}
+
+
+def replays():
+    """Replays so far of each CUDA-graphed function (``graphs.Graphed``):
+    the fixed-trip return map and the implicit projection's Newton solve
+    and tangents."""
+    from pylabfea_tpu_torch.ops import graphs
+    return {g.fn.__name__: g.replays for g in graphs.INSTANCES}
+
+
+def check_graphs(card):
+    """Fail if any CUDA-graph capture failed (its calls then ran
+    eagerly)."""
+    from pylabfea_tpu_torch.ops import graphs
+    failed = {g.fn.__name__: list(g.failed.values())
+              for g in graphs.INSTANCES if g.failed}
+    log(f'[14 graphs] graphs kept '
+        f'{ {g.fn.__name__: len(g.graphs) for g in graphs.INSTANCES} }, '
+        f'replays {replays()}, failed captures {failed or "none"}  [{card}]')
+    if failed:
+        fail(f'CUDA-graph captures failed: {failed}')
+
+
+def phase_calibrate(device, card, npaths=1024, nsteps=30):
+    """14c: ``calibrate.fit_plasticity`` round trip on the card: paths of
+    the hidden material of ``examples/calibrate_plasticity.py``
+    simulated by the port's ``simulate_paths`` (npaths x nsteps), then
+    fitted from the paths alone, under the tolerances of the JAX
+    package's round-trip test (cost < 1e-6; sy within 5e-3, khard 2e-2,
+    hill 1e-2 in the uniax_x gauge; simulated paths within 1e-2 rms): in
+    float64 and in float32 with the unrolled integrator, and in float64
+    with the implicit one (its data simulated by it too)."""
+    import torch
+    from pylabfea_tpu_torch.ops import calibrate as cal
+    CVn = elastic_cv()
+    ct = 0.5 * (CAL_HILL[0] + CAL_HILL[2])
+    rct = np.sqrt(ct)
+    out = {}
+    for name, dtype, integ in (('f64', torch.float64, 'unrolled'),
+                               ('f32', torch.float32, 'unrolled'),
+                               ('f64 implicit', torch.float64, 'implicit')):
+        deps = torch.as_tensor(cal_paths(npaths, nsteps), dtype=dtype,
+                               device=device)
+        CV = torch.as_tensor(CVn, dtype=dtype, device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            sig = cal.simulate_paths(cal_theta(dtype, device), CV, deps, 40,
+                                     integrator=integ)
+        sync(device)
+        t1 = time.perf_counter()
+        r0 = replays()
+        params, info = cal.fit_plasticity(deps, sig, CV, integrator=integ)
+        sync(device)
+        t2 = time.perf_counter()
+        e_sy = abs(params['sy'] - CAL_SY / rct) / (CAL_SY / rct)
+        e_kh = abs(params['khard'] - CAL_KHARD / rct) / (CAL_KHARD / rct)
+        e_hill = float(np.max(np.abs(params['hill'] - np.array(CAL_HILL) / ct)
+                              / (np.array(CAL_HILL) / ct)))
+        sig_np = sig.double().cpu().numpy()
+        rms = float(np.sqrt(np.mean((info['sim'] - sig_np) ** 2))
+                    / np.sqrt(np.mean(sig_np ** 2)))
+        ok = (info['loss'][-1] < 1e-6 and e_sy < 5e-3 and e_kh < 2e-2
+              and e_hill < 1e-2 and rms < 1e-2)
+        steps = len(info['step_s'])
+        log(f'[14c calibrate {name}] {npaths} paths x {nsteps} steps '
+            f'({integ}, maxiter 40): data {t1 - t0:.3f} s; fit_plasticity '
+            f'{t2 - t1:.3f} s, {steps} LM steps, '
+            f'{np.mean(info["step_s"]):.3f} s a step (each a forward-mode '
+            f'Jacobian of {len(params["hill"]) + 2} columns); cost '
+            f'{info["loss"][0]:.3e} -> {info["loss"][-1]:.3e} (bound 1e-6); '
+            f'rel err sy {e_sy:.2e} (5e-3), khard {e_kh:.2e} (2e-2), hill '
+            f'{e_hill:.2e} (1e-2); paths rms {rms:.2e} (1e-2); calls '
+            f'replayed from CUDA graphs '
+            f'{ {k: v - r0[k] for k, v in replays().items()} } '
+            f'{"ok" if ok else "FAIL"}  [{card}]')
+        if not ok:
+            fail(f'calibrate round trip ({name}) misses its tolerances')
+        out[name] = dict(seconds=t2 - t1, steps=steps,
+                         step_s=float(np.mean(info['step_s'])))
+    return out
+
+
+def femu_specimen(N, dtype, device):
+    """The two-material inclusion of the JAX package's FEMU test at N x N:
+    a Hill matrix (hill[0] 1.25, sy 150, khard 300) around a centred
+    elastic inclusion (E 60 GPa) of half the width, uniaxial y to 0.4 %
+    strain.  Returns (mesh, builder theta -> materials, CVs, truth)."""
+    import dataclasses
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    mm = np.zeros((N, N), dtype=int)
+    mm[N // 4:3 * N // 4, N // 4:3 * N // 4] = 1
+    md = fek.rect_mesh(N, N, LX=1., LY=1., uniax='y', eps_tot=0.004,
+                       mat_map=mm, dtype=dtype, device=device)
+    base = convert.material_from_params(
+        dict(hill=[1.25, 0.9, 1., 1., 1., 1.], sy=150., khard=300.,
+             drucker=0.), is_svc=False, dtype=dtype, device=device)
+    incl = convert.elastic_material(dtype=dtype, device=device)
+
+    def build(theta):
+        sy = torch.exp(theta['log_sy'])
+        hill = torch.cat([torch.exp(theta['log_h0']).reshape(1),
+                          base.hill[1:]])
+        return (dataclasses.replace(base, hill=hill, sy=sy, scale_seq=sy),
+                incl)
+    truth = {k: torch.tensor(np.log(v), dtype=dtype, device=device)
+             for k, v in (('log_sy', 150.), ('log_h0', 1.25))}
+    return md, build, (elastic_cv(), elastic_cv(60.e3)), truth
+
+
+def phase_femu(device, card, N=16):
+    """14d: ``femu.fit_field`` on the card: the inclusion's displacement
+    field at N x N (two half steps, the JAX defaults: 40 fixed trips, 14
+    secant-Picard rounds), then sy and hill[0] back from (130, 1.0) to the
+    JAX test's tolerance (cost < 1e-16, both within 1e-6)."""
+    import torch
+    from pylabfea_tpu_torch.ops import femu
+    f64 = torch.float64
+    md, build, CVs, truth = femu_specimen(N, f64, device)
+    sync(device)
+    t0 = time.perf_counter()
+    u_meas, _, epl, _ = femu.simulate(md, build(truth), CVs, [0.5, 0.5])
+    sync(device)
+    t1 = time.perf_counter()
+    theta0 = {'log_sy': torch.tensor(np.log(130.), dtype=f64, device=device),
+              'log_h0': torch.tensor(0., dtype=f64, device=device)}
+    theta, info = femu.fit_field(md, build, theta0, CVs, [0.5, 0.5], u_meas,
+                                 steps=10)
+    sync(device)
+    t2 = time.perf_counter()
+    sy = float(torch.exp(theta['log_sy']))
+    h0 = float(torch.exp(theta['log_h0']))
+    ok = (info['loss'][-1] < 1e-16 and abs(sy - 150.) < 1.5e-4
+          and abs(h0 - 1.25) < 1.25e-6)
+    log(f'[14d femu] fit_field on the {N}x{N} inclusion (float64): field '
+        f'{t1 - t0:.3f} s (max plastic strain {float(epl.abs().max()):.3e}); '
+        f'fit {t2 - t1:.3f} s, {len(info["step_s"])} LM steps, '
+        f'{np.mean(info["step_s"]):.3f} s a step; cost '
+        f'{" ".join(f"{c:.1e}" for c in info["loss"])} (bound 1e-16); sy {sy:.9f} (150), h0 '
+        f'{h0:.9f} (1.25), rel bound 1e-6 {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('femu round trip misses its tolerances')
+    return dict(seconds=t2 - t1, field_s=t1 - t0,
+                step_s=float(np.mean(info['step_s'])))
+
+
+def phase_train_card_vs_cpu(device, card):
+    """14e: float64 card against CPU at small size, each within 1e-9
+    relative: ``simulate_paths`` (8 paths x 8 steps, both integrators),
+    one ``step_implicit`` on the 4 x 4 inclusion with one forward-mode
+    column (d/d log sy), and the dual variables of ``fit_svc`` on the
+    480-point training set (500 iterations)."""
+    import torch
+    from pylabfea_tpu_torch import ml_train
+    from pylabfea_tpu_torch.ops import calibrate as cal
+    from pylabfea_tpu_torch.ops import dual, femu
+    f64, cpu = torch.float64, torch.device('cpu')
+    res = {}
+    for dev in (device, cpu):
+        r = {}
+        deps = torch.as_tensor(cal_paths(8, 8, seed=3), dtype=f64,
+                               device=dev)
+        CV = torch.as_tensor(elastic_cv(), dtype=f64, device=dev)
+        for integ in ('unrolled', 'implicit'):
+            r[integ] = cal.simulate_paths(cal_theta(f64, dev), CV, deps, 40,
+                                          integrator=integ).cpu()
+        md, build, CVs, truth = femu_specimen(4, f64, dev)
+        mdf = femu.flatten_mesh(md)
+        th = dict(truth, log_sy=dual.Dual(truth['log_sy'], torch.ones(
+            1, dtype=f64, device=dev)))
+        sig0 = torch.zeros((md.nel, 6), dtype=f64, device=dev)
+        du, _, _ = femu.step_implicit(mdf, build(th), CVs, sig0, sig0,
+                                      mdf.fixed_val * 0.5)
+        r['du'], r['jvp'] = du.v.cpu(), du.t[0].cpu()
+        z = np.load(os.path.join(DATA, 'train_small.npz'))
+        _, r['dual'] = ml_train.fit_svc(z['X'], z['y'].astype(float),
+                                        C=float(z['C']),
+                                        gamma=float(z['gamma']), iters=500,
+                                        dtype=f64, device=dev)
+        r['dual'] = torch.as_tensor(r['dual'])
+        res[dev.type] = r
+    errs = {k: float((res[device.type][k] - res['cpu'][k]).abs().max()
+                     / res['cpu'][k].abs().max()) for k in res['cpu']}
+    ok = all(e <= 1e-9 for e in errs.values())
+    log(f'[14e card vs cpu] float64, rel err card vs CPU: '
+        + ', '.join(f'{k} {e:.2e}' for k, e in errs.items())
+        + f' (bound 1e-9) {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('card and CPU disagree on the training or identification paths')
+    return errs
+
+
 def check_svc_mm_forms(device, params, card):
     """Kernel E at one N in each of its launch forms (a group of GT = 8,
     16 and 32 threads a point; P = 1, 2 and 4 points a thread) in float32,
@@ -1828,6 +2238,12 @@ def main():
     cylf = phase_cyl_faithful(device, 16, card)
     tex = phase_texture(device, 2 ** 20, 2 ** 16, card)
     phase_layouts_card_vs_cpu(device, card)
+    trained = phase_train(device, card)
+    served = phase_serve_trained(device, trained, 1024, card)
+    phase_calibrate(device, card)
+    phase_femu(device, card)
+    phase_train_card_vs_cpu(device, card)
+    check_graphs(card)
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions
@@ -1882,6 +2298,11 @@ def main():
                 listed.add((name, F))
                 kernels.append(entry(f'{name}[F={F}]', src, repl, n,
                                      wide[F][letter]))
+    # A, D and G at the trained SVC's support vectors, as 14b launched them
+    for name, chk in served['checks'].items():
+        letter, src, repl = sources[name]
+        kernels.append(entry(f'{name}[card-trained]', src, repl,
+                             served['launches'][name], chk))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

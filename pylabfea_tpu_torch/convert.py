@@ -11,7 +11,11 @@ under ``pylabfea_tpu_torch/data/``, which
 ``tools/make_torch_svc_fixtures.py`` trains with the JAX package).  A
 multi-material model crosses as a tuple of materials
 (``materials_from_params``) beside its tuple of elastic stiffnesses,
-which the solvers take as numpy arrays.
+which the solvers take as numpy arrays.  ``material_to_npz`` writes a
+material (an SVC the port trained, ``ml_train.train_svc``) in the fixture
+layout, which ``material_from_npz`` reads back; ``theta_from_arrays``
+carries a ``calibrate`` parameter dict and ``material_tree_from_params``
+the output of a ``femu`` material builder (one material or a tuple).
 Every function builds on the card unless ``device`` names another device.
 """
 import numpy as np
@@ -159,6 +163,50 @@ def material_from_npz(path, dtype=DTYPE_DEVICE, device=None):
         mat = material_from_params(params, **flags, dtype=dtype,
                                    device=device)
         return mat, np.asarray(z['CV'], dtype=np.float64), float(z['eps'])
+
+
+_FLAGS = ('is_svc', 'dev_only', 'sdim3')
+_TENSORS = ('hill', 'sv', 'dc', 'feat_mean', 'feat_scale', 'tex')
+_FLOATS = ('sy', 'khard', 'drucker', 'rho', 'gamma', 'scale_seq',
+           'scale_wh', 'voce_r', 'voce_b')
+
+
+def material_params(mat):
+    """The leaves of a DeviceMaterial as float64 numpy arrays under the
+    JAX ``DeviceMaterial`` names, plus its static flags."""
+    out = {k: np.asarray(getattr(mat, k).detach().cpu().double().numpy())
+           for k in _TENSORS}
+    out.update({k: np.float64(float(getattr(mat, k))) for k in _FLOATS})
+    out.update({k: bool(getattr(mat, k)) for k in _FLAGS})
+    return out
+
+
+def material_to_npz(path, mat, CV, eps=0.):
+    """Write a DeviceMaterial in the fixture layout that
+    ``material_from_npz`` reads: every leaf under its own name, the
+    static flags, the elastic stiffness ``CV`` and the workload strain
+    ``eps``."""
+    np.savez_compressed(path, **material_params(mat),
+                        CV=np.asarray(CV, dtype=np.float64), eps=float(eps))
+
+
+def theta_from_arrays(theta, dtype=DTYPE_DEVICE, device=None):
+    """A ``calibrate`` parameter dict (log_sy, log_hill, raw_dsy, and as
+    present raw_vr, log_vb_peeq, drucker, cv_raw) from numpy arrays to
+    tensors."""
+    device = resolve_device(device)
+    return {k: torch.as_tensor(np.asarray(v, dtype=np.float64), dtype=dtype,
+                               device=device) for k, v in theta.items()}
+
+
+def material_tree_from_params(tree, dtype=DTYPE_DEVICE, device=None):
+    """The output of a ``femu`` material builder: one material's leaves
+    as a dict of numpy arrays with its flags (the JAX
+    ``DeviceMaterial._asdict()``), or a list or tuple of them (one per
+    mesh group), as a DeviceMaterial or a tuple of them."""
+    if isinstance(tree, dict):
+        return materials_from_params([tree], dtype=dtype, device=device)[0]
+    return materials_from_params(tree, dtype=dtype, device=device)
 
 
 def _group_fields(arrays, groups, device):

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from pylabfea_tpu_torch.config import yf_tolerance
+from pylabfea_tpu_torch.ops import graphs
 from pylabfea_tpu_torch.ops import jtensors as jt
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
@@ -254,30 +255,29 @@ def _seq_hill_of(m: DeviceMaterial, sig, s):
 
 
 def _seq_grad_analytic(m: DeviceMaterial, sig):
-    """(seq, d seq / d sig) of the analytic criterion from one principal
-    decomposition; the gradient at zero stress (a sqrt kink) is guarded to
-    stay finite.  For sdim=3 the principal-space gradient fills the normal
-    Voigt slots and the shear slots stay zero (the reference's convention,
-    no back-rotation)."""
+    """(seq, d seq / d sig) of the analytic criterion in whole-row
+    operations: with the rows s (Voigt, or principal for sdim=3), d = (s0
+    - s1, s1 - s2, s2 - s0) and hd = hill[:3] d, I2 = 0.5 (hd.d + 6
+    hill[3:].s_sh^2) and the normal gradient (hd - roll(hd)) / (2 seq);
+    the gradient at zero stress (a sqrt kink) is guarded to stay finite.
+    For sdim=3 the principal-space gradient fills the normal Voigt slots
+    and the shear slots stay zero (the reference's convention, no
+    back-rotation)."""
     hp = m.hill
     s = _hill_rows(m, sig)
-    seq = _seq_hill_of(m, sig, s)
-    seqg = torch.where(seq <= 0., 1., seq)
-    sdev = jt.sig_dev(s)
-    d3 = m.drucker / 3.
-    g0 = ((hp[0] + hp[2]) * sdev[..., 0] - hp[0] * sdev[..., 1]
-          - hp[2] * sdev[..., 2]) / (2. * seqg) + d3
-    g1 = ((hp[1] + hp[0]) * sdev[..., 1] - hp[0] * sdev[..., 0]
-          - hp[1] * sdev[..., 2]) / (2. * seqg) + d3
-    g2 = ((hp[2] + hp[1]) * sdev[..., 2] - hp[2] * sdev[..., 0]
-          - hp[1] * sdev[..., 1]) / (2. * seqg) + d3
-    if s.shape[-1] == 3:
-        zero = torch.zeros_like(seqg)
-        return seq, torch.stack([g0, g1, g2, zero, zero, zero], dim=-1)
-    g3 = 3. * hp[3] * sdev[..., 3] / seqg
-    g4 = 3. * hp[4] * sdev[..., 4] / seqg
-    g5 = 3. * hp[5] * sdev[..., 5] / seqg
-    return seq, torch.stack([g0, g1, g2, g3, g4, g5], dim=-1)
+    s3 = s[..., 0:3]
+    d = s3 - torch.roll(s3, -1, -1)
+    hd = hp[..., 0:3] * d
+    I2 = 0.5 * torch.sum(hd * d, dim=-1)
+    if s.shape[-1] == 6:
+        ssh = s[..., 3:6]
+        hsh = hp[..., 3:6] * ssh
+        I2 = I2 + 3. * torch.sum(hsh * ssh, dim=-1)
+    seq = jt.safe_sqrt(I2) + m.drucker * torch.sum(sig[..., 0:3], dim=-1) / 3.
+    seqg = 2. * torch.where(seq <= 0., 1., seq)[..., None]
+    gn = (hd - torch.roll(hd, 1, -1)) / seqg + m.drucker / 3.
+    gs = 6. * hsh / seqg if s.shape[-1] == 6 else torch.zeros_like(gn)
+    return seq, torch.cat([gn, gs], dim=-1)
 
 
 def yf(m: DeviceMaterial, sig, peeq, epl=None):
@@ -432,34 +432,87 @@ def _inv6x6_spd(CV):
 
 def _compliance(CV):
     """Pseudo-compliance of the excess-stress correction (handles
-    plane-stress CV with empty rows)."""
-    SV = torch.zeros_like(CV)
+    plane-stress CV with empty rows).  Built without in-place writes, so
+    it also runs under ``torch.func`` transforms of ``CV``."""
     full3 = CV[2, 2] > 1.
-    pad = torch.diag(torch.tensor([0., 0., 1.], dtype=CV.dtype,
-                                  device=CV.device))
+    z, o = CV.new_zeros(()), CV.new_ones(())
+    pad = torch.diag(torch.stack([z, z, o]))
     inv3 = _inv3x3(torch.where(full3, CV[0:3, 0:3], CV[0:3, 0:3] + pad))
     d2 = CV[0, 0] * CV[1, 1] - CV[0, 1] * CV[1, 0]
-    inv2 = torch.stack([torch.stack([CV[1, 1], -CV[0, 1]]),
-                        torch.stack([-CV[1, 0], CV[0, 0]])]) / d2
-    top2 = torch.zeros((3, 3), dtype=CV.dtype, device=CV.device)
-    top2[0:2, 0:2] = inv2
-    SV[0:3, 0:3] = torch.where(full3, inv3, top2)
-    for k in range(3, 6):
-        SV[k, k] = torch.where(CV[k, k] > 1., 1. / CV[k, k], 0.)
-    return SV
+    zero = torch.zeros_like(d2)
+    top2 = torch.stack([torch.stack([CV[1, 1], -CV[0, 1], zero]) / d2,
+                        torch.stack([-CV[1, 0], CV[0, 0], zero]) / d2,
+                        torch.stack([zero, zero, zero])])
+    tl = torch.where(full3, inv3, top2)
+    d = torch.diagonal(CV)[3:6]
+    br = torch.diag(torch.where(d > 1., 1. / torch.where(d > 1., d, 1.), 0.))
+    z3 = torch.zeros_like(tl)
+    return torch.cat([torch.cat([tl, z3], 1), torch.cat([z3, br], 1)], 0)
 
 
 # -----------------------------------------------------------------
 # production return map
 # -----------------------------------------------------------------
-def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
+def carries_derivative(*tensors):
+    """Does any of ``tensors`` take part in a derivative: reverse mode
+    (``requires_grad`` with grad mode on), forward mode (a dual tensor)
+    or a ``torch.func`` transform, or is it a ``dual.Dual``?"""
+    from torch.autograd import forward_ad
+    from pylabfea_tpu_torch.ops.dual import Dual
+    for t in tensors:
+        if isinstance(t, Dual):
+            return True
+        if not isinstance(t, torch.Tensor):
+            continue
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            return True
+        if t.requires_grad and torch.is_grad_enabled():
+            return True
+        if forward_ad.unpack_dual(t).tangent is not None:
+            return True
+    return False
+
+
+def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1,
+                  fixed_trip=False):
     """Cutting-plane closest-point return map (Simo & Hughes alg. 3.5.2),
     ``nsub`` equal substeps, then the exact path-secant tangent; the JAX
     ``response_fast`` with its early-exit Newton loop, for SVC and analytic
     materials.
 
+    ``fixed_trip=True`` runs exactly ``maxiter`` Newton trips with every
+    plastic lane active (polished to machine zero instead of frozen
+    inside the tolerance band) and no host read: the differentiable form
+    that ``ops.calibrate`` and ``ops.femu`` take derivatives through (any
+    of ``torch.autograd``, ``forward_ad`` and ``torch.func``), analytic
+    materials only.  An SVC material raises when a derivative is asked
+    for: the derivative of its return map needs the second derivative of
+    the decision function (``hessian``), which the port does not have,
+    and its kernels take no derivative.
+
+    On the card an analytic fixed-trip call replays its launches from a
+    CUDA graph (``graphs.Graphed``, one per input signature) when no
+    tensor takes part in ``torch.autograd`` or a transform; ``dual.Dual``
+    inputs replay too.
+
     state = (sig (N, 6), epl (N, 6)); deps (N, 6); CV (6, 6) tensor.
     Returns (f_end, sig, depl, tangent (N, 6, 6))."""
+    sig0, epl0 = state
+    if m.is_svc and carries_derivative(sig0, epl0, deps, CV, m.sv, m.dc,
+                                       m.hill):
+        raise NotImplementedError(
+            'response_fast: a derivative through an SVC return map needs '
+            'the second derivative of the decision function (hessian), '
+            'which the port does not have; derivatives are taken of '
+            'analytic materials only')
+    if fixed_trip and not m.is_svc:
+        return _FIXED_TRIP(m, state, deps, CV, maxiter, nsub)
+    return _response_fast(m, state, deps, CV, maxiter, nsub, fixed_trip)
+
+
+def _response_fast(m: DeviceMaterial, state, deps, CV, maxiter, nsub,
+                   fixed_trip):
+    """The body of ``response_fast``."""
     sig0, epl0 = state
     dt = sig0.dtype
     N = sig0.shape[0]
@@ -494,12 +547,13 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
         sig, depl, f, a, kh = sig_tr, depl_in, f_tr, a_tr, kh_tr
         it = 0
         # host read of the active-lane flag once per Newton trip (the JAX
-        # while_loop decides on the device)
-        while it < maxiter and bool((plastic & (torch.abs(f) > toler))
-                                    .any()):
+        # while_loop decides on the device); none in the fixed-trip form
+        while it < maxiter and (fixed_trip or bool(
+                (plastic & (torch.abs(f) > toler)).any())):
             ca = a @ CVT
             denom = torch.maximum(torch.sum(ca * a, dim=-1) + kh, cv_floor)
-            act = plastic & (torch.abs(f) > toler)
+            act = plastic if fixed_trip else \
+                plastic & (torch.abs(f) > toler)
             lam = torch.where(act, f / denom, 0.)
             dsig_norm = torch.abs(lam) * torch.sqrt(torch.sum(ca * ca,
                                                               dim=-1))
@@ -562,6 +616,13 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1):
                        CV[None] - w[:, :, None] * w[:, None, :]
                        / dsafe[:, None, None], grad)
     return f_end, sig, depl, grad
+
+
+def _fixed_trip_call(m, state, deps, CV, maxiter, nsub):
+    return _response_fast(m, state, deps, CV, maxiter, nsub, True)
+
+
+_FIXED_TRIP = graphs.Graphed(_fixed_trip_call)
 
 
 #: the JAX package's chunk sizes of ``response_fast_chunked`` and

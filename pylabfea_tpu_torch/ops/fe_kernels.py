@@ -18,6 +18,12 @@ Multi-material meshes (``rect_mesh(mat_map=...)``) sort the elements into
 contiguous per-material blocks (``perm``, ``groups``); the solvers then
 take tuples of materials and elastic stiffnesses aligned with the groups,
 and ``respond_grouped`` runs one return map per block.
+
+The flat layout (``grid=None``, ``femu.flatten_mesh``) keeps nodal vectors
+as (Ndof,) with dof = comp * nnode + node and the element dofs in
+``dofs``; its operator is a gather, a batched (Nel, 8, 8) product and a
+scatter-add (``k_apply``), solved by Jacobi-preconditioned CG
+(``cg_solve``, ``solve_linear``).  Nothing on it is a kernel of its own.
 """
 import dataclasses
 import warnings
@@ -34,29 +40,34 @@ from pylabfea_tpu_torch.ops import stencil as st
 
 @dataclass
 class MeshData:
-    """Structured-mesh tensors of the solver (the JAX ``MeshData``,
-    structured fields).  Multi-material meshes carry ``perm`` (a stable
-    sort of the elements by material), its inverse ``inv_perm`` and the
-    (start, size) blocks ``groups``; multi-material plane-stress meshes
-    also carry ``ps_b2``, the per-element eps_33 condensation rows.  These
-    are None on single-material meshes.  ``cache`` holds what is derived
-    once per mesh object (the multigrid coarse-mesh chain and transfer
-    matrices); ``dataclasses.replace`` starts a copy with an empty one."""
-    B: torch.Tensor          # (4, 6, 8) B matrices at the Gauss points
+    """Mesh tensors of the solver (the JAX ``MeshData``).  Structured
+    meshes carry ``grid`` and (2, nnX, nnY) BC planes; flat ones
+    (``grid=None``) carry 1-D (Ndof,) BC vectors and the element dofs
+    ``dofs`` (Nel, 8) (``grid_dofs``).  Multi-material meshes carry
+    ``perm`` (a stable sort of the elements by material), its inverse
+    ``inv_perm`` and the (start, size) blocks ``groups``; multi-material
+    plane-stress meshes also carry ``ps_b2``, the per-element eps_33
+    condensation rows.  These are None on single-material meshes.
+    ``cache`` holds what is derived once per mesh object (the multigrid
+    coarse-mesh chain and transfer matrices); ``dataclasses.replace``
+    starts a copy with an empty one."""
+    B: torch.Tensor          # (4, 6, 8) B at the Gauss points, or
+    #                          (Nel, ngp, 6, n) per element (flat bars)
     Bsum: torch.Tensor       # (6, 8) sum_g B (element-average strain)
-    jacw: torch.Tensor       # 0-d: Jacobian * Gauss weight
+    jacw: torch.Tensor       # 0-d: Jacobian * Gauss weight ((Nel,) per el.)
     vel: torch.Tensor        # 0-d: element volume
-    fixed: torch.Tensor      # (2, nnX, nnY) bool displacement-BC mask
-    fixed_val: torch.Tensor  # (2, nnX, nnY) prescribed values (unit load)
-    force: torch.Tensor      # (2, nnX, nnY) external forces (unit load)
+    fixed: torch.Tensor      # (2, nnX, nnY) | (Ndof,) bool displacement BCs
+    fixed_val: torch.Tensor  # prescribed values (unit load), same layout
+    force: torch.Tensor      # external forces (unit load), same layout
     ndof: int
     nel: int
-    grid: tuple              # (NX, NY, lx, ly, uniax)
+    grid: tuple              # (NX, NY, lx, ly, uniax); None when flat
     M64: torch.Tensor        # (64, 36) float64 m64_matrix of the geometry
     perm: torch.Tensor = None      # (Nel,) int64 material sort
     inv_perm: torch.Tensor = None  # (Nel,) int64: inv_perm[perm[j]] = j
     ps_b2: torch.Tensor = None     # (8, NX, NY) eps_33 condensation rows
     groups: tuple = None           # ((start, size), ...) per material
+    dofs: torch.Tensor = None      # (Nel, 8) int64 global dofs (flat layout)
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -246,6 +257,19 @@ def rect_mesh(NX, NY, LX=1., LY=1., thick=1., uniax='y', eps_tot=0.01,
                     groups=groups)
 
 
+def grid_dofs(NX, NY):
+    """(Nel, 8) int64 numpy: the flat dofs (dof = comp * nnode + node) of
+    each element's local dofs on an NX x NY grid, nodes numbered column
+    by column as in the reference's structured mesher (the JAX
+    ``rect_mesh``'s ``dofs``)."""
+    nnY = NY + 1
+    ih = np.arange(NX * NY)
+    n1 = (ih // NY) * nnY + ih % NY
+    nodes = np.stack([n1, n1 + 1, n1 + nnY, n1 + nnY + 1], axis=1)
+    return np.stack([nodes + c * (NX + 1) * nnY for c in range(2)],
+                    axis=2).reshape(-1, 8)
+
+
 def m64_matrix(B, jacw):
     """The (64, 36) element-stiffness contraction matrix M[(i,j),(a,b)] =
     jacw sum_g B[g,a,i] B[g,b,j] in float64 (numpy), from the geometry as
@@ -324,10 +348,159 @@ def _axpy(a, x, y):
     return tuple(a * u + v for u, v in zip(x, y))
 
 
+# -----------------------------------------------------------------
+# flat layout (grid=None)
+# -----------------------------------------------------------------
+def gather_element(md: MeshData, v):
+    """Flat nodal vector (Ndof,) -> per-element (Nel, 8) local values."""
+    return v[md.dofs]
+
+
+def scatter_element(md: MeshData, fe):
+    """Per-element (Nel, 8) contributions -> flat nodal vector
+    (scatter-add)."""
+    return fe.new_zeros(md.ndof).index_add(0, md.dofs.reshape(-1),
+                                           fe.reshape(-1))
+
+
+def element_stiffness(md: MeshData, elstiff):
+    """Ke[e] = jacw sum_g B_g^T C_e B_g, (Nel, n, n): with the shared
+    (ngp, 6, n) B as one (n*n, 36) geometry matrix against the (Nel, 36)
+    tangent rows, with per-element (Nel, ngp, 6, n) B and (Nel,) jacw (the
+    bar path) as one batched contraction."""
+    if md.B.dim() == 4:
+        Ke = torch.einsum('egai,eab,egbj->eij', md.B, elstiff, md.B)
+        return md.jacw[:, None, None] * Ke
+    n = md.B.shape[-1]
+    M = md.jacw * torch.einsum('gai,gbj->ijab', md.B, md.B)
+    return (elstiff.reshape(-1, 36) @ M.reshape(n * n, 36).T).reshape(
+        -1, n, n)
+
+
+def k_apply(md: MeshData, Ke, v):
+    """Matrix-free K v on a flat mesh with identity rows on fixed dofs: a
+    gather, a batched (Nel, 8, 8) product and a scatter-add."""
+    vm = torch.where(md.fixed, 0., v)
+    fe = torch.einsum('eij,ej->ei', Ke, vm[md.dofs])
+    return torch.where(md.fixed, v, scatter_element(md, fe))
+
+
+def k_diag(md: MeshData, Ke):
+    """Diagonal of K on a flat mesh (the Jacobi preconditioner), 1 on
+    fixed dofs."""
+    d = scatter_element(md, torch.diagonal(Ke, dim1=1, dim2=2))
+    return torch.where(md.fixed, 1., d)
+
+
+def cg_solve(apply_fn, b, x0, diag, tol=1.e-8, maxiter=2000):
+    """Jacobi-preconditioned CG on flat vectors (the JAX ``cg_solve``).
+
+    Exits at ``|r| <= tol |b|``, at ``maxiter``, or (float32 only) after 4
+    consecutive iterations below 1e-3 relative that improve the best
+    residual by less than 5%: the f32 rounding floor.  The residual norm
+    is read to the host once an iteration (the exit test).  Returns (x,
+    relative residual, iterations)."""
+    minv = 1. / diag
+    r = b - apply_fn(x0)
+    z = minv * r
+    p = z
+    rz = torch.sum(r * z)
+    bnorm = max(float(torch.sqrt(torch.sum(b * b))), 1e-30)
+    b_f32 = b.dtype == torch.float32
+    x = x0
+    it, nstall = 0, 0
+    rn = best = float(torch.sqrt(torch.sum(r * r)))
+    while rn > tol * bnorm and it < maxiter and nstall < 4:
+        Ap = apply_fn(p)
+        alpha = rz / torch.sum(p * Ap)
+        x = alpha * p + x
+        r = -alpha * Ap + r
+        z = minv * r
+        rz_new = torch.sum(r * z)
+        p = (rz_new / rz) * p + z
+        rn = float(torch.sqrt(torch.sum(r * r)))
+        if b_f32:
+            if rn < 0.95 * best:
+                nstall = 0
+            elif rn < 1e-3 * bnorm:
+                nstall += 1
+        best = min(best, rn)
+        rz = rz_new
+        it += 1
+    return x, rn / bnorm, it
+
+
+def _cg_flat(md: MeshData, elstiff, bc_val, force, cg_tol, cg_maxiter, x0):
+    """Jacobi-CG on the BC-embedded flat system: the prescribed values
+    ``bc_val`` on fixed dofs, their coupling moved to the right-hand
+    side."""
+    Ke = element_stiffness(md, elstiff)
+    du_bc = torch.where(md.fixed, bc_val, 0.)
+    fe = torch.einsum('eij,ej->ei', Ke, gather_element(md, du_bc))
+    rhs = torch.where(md.fixed, bc_val, -scatter_element(md, fe) + force)
+    start = torch.where(md.fixed, bc_val, x0)
+    return cg_solve(lambda v: k_apply(md, Ke, v), rhs, start, k_diag(md, Ke),
+                    tol=cg_tol, maxiter=cg_maxiter)
+
+
+def solve_linear(md: MeshData, elstiff, bc_val, force=None, cg_tol=None,
+                 cg_maxiter=100, x0=None):
+    """One Jacobi-CG solve on a flat mesh with the tangent rows
+    ``elstiff`` (Nel, 6, 6): prescribed ``bc_val`` on fixed dofs, the
+    optional external ``force`` on free ones, started from ``x0`` (zero
+    when None); the flat branch of the JAX ``solve_linear`` (structured
+    meshes solve with MG-CG inside ``load_step_split``).  Returns (du,
+    relative residual, iterations)."""
+    if md.grid is not None:
+        raise ValueError('solve_linear: a flat mesh (femu.flatten_mesh)')
+    if cg_tol is None:
+        cg_tol = 1.e-11 if elstiff.dtype == torch.float64 else 1.e-6
+    if force is None:
+        force = torch.zeros_like(bc_val)
+    if x0 is None:
+        x0 = torch.zeros_like(bc_val)
+    return _cg_flat(md, elstiff, bc_val, force, float(cg_tol),
+                    int(cg_maxiter), x0)
+
+
+def _residual_f64_flat(md: MeshData, elstiff, du64, force):
+    """True residual ``force - K du`` of the BC-embedded flat system in
+    float64, the element stiffnesses of the working dtype upcast exactly;
+    zero on fixed rows."""
+    f64 = torch.float64
+    Ke = element_stiffness(md, elstiff).to(f64)
+    fe = torch.einsum('eij,ej->ei', Ke, gather_element(md, du64))
+    return torch.where(md.fixed, 0., force.to(f64) - scatter_element(md, fe))
+
+
+def refine_du_flat(md: MeshData, elstiff, du, bc_val, force, cg_tol,
+                   cg_maxiter, n=1):
+    """Mixed-precision iterative refinement on flat meshes: the float64
+    true residual, the correction re-solved with the same Jacobi-CG in the
+    working dtype and accumulated in float64, ``n`` times."""
+    du64 = du.to(torch.float64)
+    zero = torch.zeros_like(bc_val)
+    for _ in range(n):
+        r = _residual_f64_flat(md, elstiff, du64, force)
+        d, _, _ = _cg_flat(md, elstiff, zero, r.to(du.dtype), float(cg_tol),
+                           int(cg_maxiter), zero)
+        du64 = du64 + d.to(torch.float64)
+    return du64.to(du.dtype)
+
+
 def element_deps(md: MeshData, du):
     """Element-average strain increments (Nel, 6) from the nodal
-    displacement increment (2, nnX, nnY); eps_33 from the ``ps_b2`` rows
-    on multi-material plane-stress meshes."""
+    displacement increment ((2, nnX, nnY) planes or flat (Ndof,)); eps_33
+    from the ``ps_b2`` rows on multi-material plane-stress meshes."""
+    if md.grid is None:
+        ue = gather_element(md, du)
+        if md.Bsum.dim() == 3:      # per-element B (bars)
+            return torch.einsum('eai,ei->ea', md.Bsum, ue)
+        deps = torch.einsum('ai,ei->ea', md.Bsum, ue)
+        if md.ps_b2 is not None:
+            e33 = torch.einsum('ei,ei->e', md.ps_b2.reshape(8, -1).T, ue)
+            deps = torch.cat([deps[:, :2], e33[:, None], deps[:, 3:]], 1)
+        return deps
     up = _gather_planes(md, _split(du))
     planes = [sum(md.Bsum[a, i] * up[i] for i in range(8)) for a in range(6)]
     if md.ps_b2 is not None:
@@ -371,11 +544,11 @@ GATE_DST_RTOL = 1e-4
 
 @dataclass
 class SolverState:
-    u: torch.Tensor          # (2, nnX, nnY)
+    u: torch.Tensor          # (2, nnX, nnY) | (Ndof,) flat
     sig: torch.Tensor        # (Nel, 6)
     epl: torch.Tensor        # (Nel, 6)
     eps: torch.Tensor        # (Nel, 6)
-    elstiff: torch.Tensor    # (36, NX, NY) tangent planes
+    elstiff: torch.Tensor    # (36, NX, NY) tangent planes | (Nel, 6, 6)
 
 
 def group_stiffness(md, CV, dtype):
@@ -393,16 +566,17 @@ def group_stiffness(md, CV, dtype):
 
 def init_state(md: MeshData, CV, dtype=DTYPE_DEVICE):
     """Virgin state with the elastic stiffness in every element (``CV``,
-    or the groups' tuple on a multi-material mesh)."""
-    NX, NY = md.grid[:2]
-
+    or the groups' tuple on a multi-material mesh): tangent planes (36,
+    NX, NY) on a structured mesh, rows (Nel, 6, 6) on a flat one."""
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=md.device)
 
+    els = group_stiffness(md, CV, dtype)
+    els = els.T.reshape(md.nel, 6, 6) if md.grid is None else els.reshape(
+        36, *md.grid[:2])
     return SolverState(u=zeros(*md.fixed.shape), sig=zeros(md.nel, 6),
                        epl=zeros(md.nel, 6), eps=zeros(md.nel, 6),
-                       elstiff=group_stiffness(md, CV, dtype).reshape(
-                           36, NX, NY))
+                       elstiff=els)
 
 
 def _hier_kes(md: MeshData, elstiff):

@@ -5,6 +5,7 @@ the suite's conftest cannot load) run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -611,3 +612,146 @@ def test_wrappers_reject_feature_counts_out_of_range(cuda):
         with pytest.raises(ValueError):
             fn(x[:, :0].contiguous(), sv[:, :0].contiguous(),
                torch.zeros(3, device=cuda), 1., 0.)
+
+
+# -----------------------------------------------------------------
+# training and inverse identification on the card
+# -----------------------------------------------------------------
+def test_fit_svc_on_the_card_matches_the_cpu(cuda):
+    from pylabfea_tpu_torch import ml_train
+    z = np.load(os.path.join(chip_smoke.DATA, 'train_small.npz'))
+    X, y = z['X'], z['y'].astype(float)
+    kw = dict(C=float(z['C']), gamma=float(z['gamma']), iters=300,
+              dtype=torch.float64)
+    pa, aa = ml_train.fit_svc(X, y, device=cuda, **kw)
+    pb, ab = ml_train.fit_svc(X, y, device='cpu', **kw)
+    assert np.abs(aa - ab).max() <= 1e-9 * np.abs(ab).max()
+    n0 = sk.svc_decision.launches
+    mat, score, _ = ml_train.train_svc(X, y, float(z['sy']), device=cuda,
+                                       **kw)
+    assert sk.svc_decision.launches == n0 + 1 and score > 97.
+
+
+@pytest.mark.parametrize('integ', ['unrolled', 'implicit'])
+def test_simulate_paths_and_jacobian_on_the_card(cuda, integ):
+    """Card against CPU in float64, and the CUDA-graph replays of the
+    fixed-trip map against eager calls on the card."""
+    from pylabfea_tpu_torch.ops import calibrate as cal
+    from pylabfea_tpu_torch.ops import dual, graphs
+    out = {}
+    for dev, graphed in ((cuda, True), (cuda, False), ('cpu', False)):
+        graphs.ENABLED = graphed
+        try:
+            deps = torch.as_tensor(chip_smoke.cal_paths(12, 8, seed=2),
+                                   dtype=torch.float64, device=dev)
+            CV = torch.as_tensor(chip_smoke.elastic_cv(), dtype=torch.float64,
+                                 device=dev)
+            x0, unravel = cal.ravel_theta(chip_smoke.cal_theta(torch.float64,
+                                                               dev))
+
+            def f(x):
+                return cal.simulate_paths(unravel(x), CV, deps, 40,
+                                          integrator=integ).reshape(-1)
+            y, J = dual.jacfwd(f, x0)
+            y2, J2 = dual.jacfwd(f, x0)       # a replay where graphed
+            out[(str(dev), graphed)] = (y.cpu(), J.cpu(), y2.cpu(), J2.cpu())
+        finally:
+            graphs.ENABLED = True
+    g, e, c = out[(str(cuda), True)], out[(str(cuda), False)], \
+        out[('cpu', False)]
+    for a, b in zip(g, e):
+        assert torch.equal(a, b)
+    for a, b in zip(e, c):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+def test_step_implicit_on_the_card_matches_the_cpu(cuda):
+    from pylabfea_tpu_torch.ops import dual, femu
+    res = {}
+    for dev in (cuda, torch.device('cpu')):
+        md, build, CVs, truth = chip_smoke.femu_specimen(4, torch.float64,
+                                                         dev)
+        mdf = femu.flatten_mesh(md)
+        th = dict(truth, log_sy=dual.Dual(truth['log_sy'], torch.ones(
+            1, dtype=torch.float64, device=dev)))
+        z = torch.zeros((md.nel, 6), dtype=torch.float64, device=dev)
+        du, sig, _ = femu.step_implicit(mdf, build(th), CVs, z, z,
+                                        mdf.fixed_val * 0.5)
+        res[dev.type] = (du.v.cpu(), du.t.cpu(), sig.v.cpu())
+    for a, b in zip(res['cuda'], res['cpu']):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.abs().max())
+
+
+def test_flat_cg_on_the_card_matches_the_cpu(cuda):
+    from pylabfea_tpu_torch.ops import femu
+    out = {}
+    for dev in (cuda, torch.device('cpu')):
+        md = femu.flatten_mesh(fek.rect_mesh(12, 9, LX=1., LY=1.5,
+                                             dtype=torch.float64,
+                                             device=dev))
+        rng = np.random.default_rng(1)
+        els = torch.as_tensor(np.asarray(chip_smoke.elastic_cv())[None]
+                              * rng.uniform(0.5, 1.5, (md.nel, 1, 1)),
+                              device=dev)
+        out[dev.type] = fek.solve_linear(md, els, md.fixed_val, cg_tol=1e-10,
+                                         cg_maxiter=600)
+    (a, ra, ia), (b, rb, ib) = out['cuda'], out['cpu']
+    assert ia == ib
+    assert float((a.cpu() - b).abs().max()) <= 1e-10 * float(b.abs().max())
+
+
+def test_svc_derivative_raises_on_the_card(cuda):
+    mat, CV, _ = convert.material_from_npz(
+        os.path.join(chip_smoke.ROOT, 'REF_SOLVE_svc.npz'),
+        dtype=torch.float64, device=cuda)
+    sig = torch.full((8, 6), 20., dtype=torch.float64, device=cuda)
+    deps = torch.full((8, 6), 1e-4, dtype=torch.float64, device=cuda,
+                      requires_grad=True)
+    CV = torch.as_tensor(CV, device=cuda)
+    with pytest.raises(NotImplementedError, match='hessian'):
+        con.response_fast(mat, (sig, torch.zeros_like(sig)), deps, CV, 40,
+                          fixed_trip=True)
+    n0 = sk.svc_f_grad.launches
+    out = con.response_fast(mat, (sig, torch.zeros_like(sig)),
+                            deps.detach(), CV, 40, fixed_trip=True)
+    assert sk.svc_f_grad.launches > n0 and bool(torch.isfinite(out[1]).all())
+
+
+def test_fixed_trip_graphs_take_new_floats_and_stay_bounded(cuda):
+    """The fixed-trip map's CUDA graphs: a material float of a new value
+    replays the graph captured for the first (equal to an eager call), no
+    capture fails, and at most ``graphs.MAX_GRAPHS`` graphs are kept."""
+    from pylabfea_tpu_torch.ops import graphs
+    f64 = torch.float64
+    CV = torch.as_tensor(chip_smoke.elastic_cv(), dtype=f64, device=cuda)
+    mat = convert.material_from_params(
+        dict(hill=np.array([1.3, .85, 1., 1., 1., 1.]), sy=180.,
+             khard=800., drucker=0.), is_svc=False, dtype=f64, device=cuda)
+    rng = np.random.default_rng(3)
+
+    def states(n):
+        return [torch.as_tensor(rng.normal(0., s, (n, 6)), dtype=f64,
+                                device=cuda) for s in (120., 1e-3, 2e-3)]
+
+    ft = con._FIXED_TRIP
+    ft.graphs.clear()
+    sig, epl, deps = states(256)
+    for sy in (180., 150., 210.):
+        m = dataclasses.replace(mat, sy=sy)
+        r0 = ft.replays
+        out = con.response_fast(m, (sig, epl), deps, CV, 12, fixed_trip=True)
+        assert not ft.failed, list(ft.failed.values())
+        graphs.ENABLED = False
+        try:
+            ref = con.response_fast(m, (sig, epl), deps, CV, 12,
+                                    fixed_trip=True)
+        finally:
+            graphs.ENABLED = True
+        assert ft.replays == r0 + (sy != 180.)
+        for a, b in zip(out, ref):
+            assert torch.equal(a, b)
+    assert len(ft.graphs) == 1
+    for n in range(1, graphs.MAX_GRAPHS + 3):
+        sig, epl, deps = states(n)
+        con.response_fast(mat, (sig, epl), deps, CV, 12, fixed_trip=True)
+    assert len(ft.graphs) == graphs.MAX_GRAPHS and not ft.failed

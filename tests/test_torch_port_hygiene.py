@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from pylabfea_tpu_torch import config, convert
+from pylabfea_tpu_torch import config, convert, ml_train
 from pylabfea_tpu_torch.kernels import build
-from pylabfea_tpu_torch.ops import fe3d, fe_kernels, rootfind, stencil, volume
+from pylabfea_tpu_torch.ops import calibrate, fe3d, fe_kernels, rootfind, \
+    stencil, volume
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 # One torch thread: the suite runs several test processes at once, and
@@ -28,11 +29,12 @@ import sys
 import torch
 torch.set_num_threads(1)
 import pylabfea_tpu_torch
-from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch import convert, ml_train
 from pylabfea_tpu_torch.kernels import build
-from pylabfea_tpu_torch.ops import (constitutive, fe3d, fe_kernels, jtensors,
-                                    multigrid, rootfind, stencil, svc,
-                                    svc_kernels, volume)
+from pylabfea_tpu_torch.ops import (calibrate, constitutive, dual, fe3d,
+                                    fe_kernels, femu, jtensors, multigrid,
+                                    rootfind, stencil, svc, svc_kernels,
+                                    volume)
 cpu = dict(device='cpu')
 mat, CV, eps = convert.material_from_npz('REF_SOLVE_svc.npz', **cpu)
 md = fe_kernels.rect_mesh(16, 16, eps_tot=eps, **cpu)
@@ -53,11 +55,23 @@ for name in ('svc_wh', 'svc_cyl', 'svc_tex_gsh3', 'svc_tex_adv'):
         f'pylabfea_tpu_torch/data/{name}.npz', **f64)
     s = torch.linspace(-90., 120., 12, dtype=torch.float64).reshape(2, 6)
     dist.append(constitutive.ml_yf_dist(m, s, torch.zeros(2, **f64)))
+mats = (j2, convert.elastic_material(**f64))
+mdi = fe_kernels.rect_mesh(2, 2, eps_tot=0.002, mat_map=[[0, 1], [1, 1]],
+                           **f64)
+u_femu = femu.simulate(mdi, mats, (CV, CV), [1.], n_inner=2, maxiter=8)[0]
+deps = torch.full((2, 3, 6), 5e-4, dtype=torch.float64)
+sim = calibrate.simulate_paths(
+    {'log_sy': torch.tensor(5.), 'log_hill': torch.zeros(6),
+     'raw_dsy': torch.tensor(1.)}, torch.as_tensor(CV), deps, 8)
+trained, score, _ = ml_train.train_svc(
+    torch.tensor([[0.5] + [0.] * 5, [1.5] + [0.] * 5]),
+    torch.tensor([-1., 1.]), 100., iters=20, **f64)
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
 assert not bad, bad
 print('clean', float(hist[-1][0][1]), float(hist4[-1][0][1]),
-      float(hist3[-1][0][2]), [float(d[0]) for d in dist])
+      float(hist3[-1][0][2]), [float(d[0]) for d in dist],
+      float(u_femu.abs().max()), float(sim[0, -1, 0]), score)
 """
 
 
@@ -112,6 +126,22 @@ def test_constructors_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         convert.state_from_arrays(st_arrays)
     assert md.B.device.type == md3.B.device.type == 'cpu'
+    X, y = np.eye(6)[:2], np.array([-1., 1.])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ml_train.fit_svc(X, y, iters=2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ml_train.train_svc(X, y, 100., iters=2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        ml_train.gridsearch_svc(X, y, [1.], [1.], n_splits=2, iters=2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        calibrate.resample_paths({'a': {'Stress': np.ones((5, 6)),
+                                        'Strain_Total': np.cumsum(
+                                            np.ones((5, 6)), 0)}})
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        calibrate.fit_plasticity(np.ones((1, 4, 6)), np.ones((1, 4, 6)),
+                                 np.eye(6))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.theta_from_arrays({'log_sy': 5.})
 
 
 def test_no_port_source_imports_jax():

@@ -22,6 +22,19 @@ layouts) and the total strain ``eps`` of the port's uniaxial workloads.
 * ``svc_tex_adv.npz``: PCA-whitened ADV_12 descriptors of four texture
   sets (6 + the PCA's components), ``tests/test_device.py``'s ADV test.
 
+Two training sets for the port's trainer (``pylabfea_tpu_torch.ml_train``)
+carry the host ``Material.create_sig_data`` points, scaled as
+``train_SVC`` scales them (stress / sy), with the settings that made them:
+
+* ``train_hill.npz``: ``examples/train_hill.py``'s Hill reference (sy 50
+  MPa, rv = [1.2, 1, 0.8, 1, 1, 1]; Nlc 300, Nseq 25, Fe 0.3, Ce 0.95,
+  about 15,000 points), the JAX trainer's fit at the JAX backend's
+  settings (C 4, gamma 1.5, 4000 iterations, float32), its training
+  accuracy and its decision values on a seeded probe set;
+* ``train_small.npz``: ``tests/test_jax_trainer.py``'s Hill reference (sy
+  100 MPa, hill [1.2, 1, 0.8, 1, 1, 1]) at 40 load cases and Nseq 6 (480
+  points), C 10 and gamma 2.5, for the CPU parity test.
+
 This script imports the JAX package and scikit-learn; the port and the
 machine that runs it on the card need neither.
 """
@@ -111,6 +124,55 @@ FIXTURES = {'svc_wh': wh_material, 'svc_cyl': cyl_material,
             'svc_tex_gsh3': gsh3_material, 'svc_tex_adv': adv_material}
 
 
+def _sig_data(ref, nlc, nseq, fe, ce):
+    """Labelled training stresses of ``ref`` as ``train_SVC`` makes them,
+    scaled by the yield strength as its ``create_scaled_input`` does."""
+    gen = FE.Material('gen')
+    gen.elasticity(CV=ref.CV)
+    gen.plasticity(sy=ref.sy, sdim=6)
+    x, y = gen.create_sig_data(N=nlc, mat_ref=ref, Nseq=nseq, Fe=fe, Ce=ce)
+    return x / ref.sy, y
+
+
+def train_hill_set():
+    import jax.numpy as jnp
+    from pylabfea_tpu import ml_train
+    from pylabfea_tpu.ops import svc as svc_ops
+    rv = [1.2, 1., 0.8, 1., 1., 1.]
+    ref = FE.Material(name='Hill-reference')
+    ref.elasticity(E=200.e3, nu=0.3)
+    ref.plasticity(sy=50., rv=rv, sdim=6)
+    cfg = dict(nlc=300, nseq=25, fe=0.3, ce=0.95)
+    X, y = _sig_data(ref, **cfg)
+    C, gamma, iters = 4., 1.5, 4000
+    params, a = ml_train.fit_svc_jax(X, y, C=C, gamma=gamma, iters=iters,
+                                     dtype=jnp.float32)
+    rng = np.random.default_rng(21)
+    u = rng.normal(size=(1024, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    probe = u * rng.uniform(0.3, 1.6, (1024, 1))
+    pred = np.where(svc_ops.decision_function(params, X) > 0., 1., -1.)
+    return dict(X=X.astype(np.float32), y=y.astype(np.int8), probe=probe,
+                f_probe_jax=svc_ops.decision_function(params, probe),
+                acc_jax=100. * np.mean(pred == y),
+                nsv_jax=params.support_vectors.shape[0], C=C, gamma=gamma,
+                iters=iters, sy=ref.sy, hill=np.asarray(ref.hill, float),
+                rv=np.asarray(rv), CV=ref.CV, dtype='float32', **cfg)
+
+
+def train_small_set():
+    ref = FE.Material()
+    ref.elasticity(E=200.e3, nu=0.3)
+    ref.plasticity(sy=100., hill=[1.2, 1., 0.8, 1., 1., 1.], sdim=6)
+    cfg = dict(nlc=40, nseq=6, fe=0.5, ce=0.95)
+    X, y = _sig_data(ref, **cfg)
+    return dict(X=X, y=y.astype(np.int8), C=10., gamma=2.5, sy=ref.sy,
+                hill=np.asarray(ref.hill, float), CV=ref.CV, **cfg)
+
+
+TRAINING_SETS = {'train_hill': train_hill_set, 'train_small': train_small_set}
+
+
 def save(name, mat, CV, tex):
     import jax.numpy as jnp
     dm = con.device_material_from(mat, dtype=jnp.float64, tex=tex)
@@ -126,10 +188,22 @@ def save(name, mat, CV, tex):
           f'{os.path.getsize(path)} bytes')
 
 
+def save_set(name, arrays):
+    path = os.path.join(OUT, name + '.npz')
+    np.savez_compressed(path, **arrays)
+    extra = (f', JAX fit: {arrays["nsv_jax"]} SVs, training accuracy '
+             f'{arrays["acc_jax"]:.2f} %' if 'acc_jax' in arrays else '')
+    print(f'{path}: {len(arrays["y"])} points{extra}, '
+          f'{os.path.getsize(path)} bytes')
+
+
 def main(names):
     os.makedirs(OUT, exist_ok=True)
-    for name in names or FIXTURES:
-        save(name, *FIXTURES[name]())
+    for name in names or list(FIXTURES) + list(TRAINING_SETS):
+        if name in TRAINING_SETS:
+            save_set(name, TRAINING_SETS[name]())
+        else:
+            save(name, *FIXTURES[name]())
 
 
 if __name__ == '__main__':
