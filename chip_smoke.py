@@ -83,14 +83,32 @@ used.  Phases, each of which must pass:
    on the 16 x 16 two-material inclusion (sy and hill[0] within 1e-6);
    14e. f64 card against CPU at small size: ``simulate_paths``, one
    ``step_implicit`` with one forward-mode column, ``fit_svc``'s dual
-   variables (1e-9); no CUDA-graph capture of phase 14 may fail.
+   variables (1e-9); no CUDA-graph capture of phase 14 may fail;
+15. the host-model bridge (``bridge.py``) on records, the card having no
+   host ``Model``: 15a. ``reduce_svc`` of 14a's SVC at 'auto' (k, the
+   relative RKHS error, max |f - f~| on 2^16 probes within abs_tol, the
+   compressed locus by 14b's rule), A and D at 2^20 points x k against
+   their plain versions; 15b. ``solve_record`` (``solve_on_device``) at
+   1024 x 1024 from a record built from arrays, compress 'auto' and
+   None, 20 steps (A, B, D); 15c. ``solve_record_adaptive`` on
+   ``tests/test_bridge.py``'s ``_model`` at 1024 x 1024 (J2, f64, fast;
+   B) and on the compressed SVC at 32 x 32 (f64, faithful; D, E, G, G
+   also in the fixed-direction root find), then E at that shape and G
+   in that root find against their plain versions; 15d.
+   ``properties_record`` (``calc_properties_on_device``) at 256 x 256
+   (A, B, G) against the Hill locus of the training material; 15e. the
+   committed records of ``ACCURACY.md``'s golden models
+   (``pylabfea_tpu_torch/data/bridge_*.npz``) in f64 on the card and the
+   CPU, and ``hessian`` / ``epl_dot`` / ``c_tan`` card vs CPU.
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after (also by feature count, ``launches_by_nfeat``).  The last
 two lines are a JSON object with every kernel's launches, error, times and
 bound (a kernel at another feature count than 6 as ``name[F=n]``, with its
 launches on the path of phase 13 that ran it; A, D and G at the SVC
-trained in 14a as ``name[card-trained]``, with their launches in 14b), and ``{"ok": true,
+trained in 14a as ``name[card-trained]``, with their launches in 14b;
+A, B, D, E and G on the bridge's path as ``name[bridge]``, with their
+launches in 15b-15d), and ``{"ok": true,
 "device": {...}}``.
 Any failure raises and exits non-zero without those lines.
 """
@@ -2141,6 +2159,526 @@ def check_svc_mm_forms(device, params, card):
     return max(errs), None, None, None
 
 
+# -----------------------------------------------------------------
+# the host-model bridge (phase 15)
+# -----------------------------------------------------------------
+#: the bridge's committed records (``tools/make_torch_bridge_fixtures.py``)
+BRIDGE_FIXTURES = ('bcnode', 'ml_shear', 'bar_sf1', 'bar_sf2', 'resume')
+#: records not solved again on the CPU in 15e (the ML shear record's
+#: faithful solve took 20-30 s on the host CPU of an NVIDIA H100 80GB HBM3
+#: machine): the card is held against the JAX device solver's committed
+#: fields alone
+NO_CPU = ('ml_shear',)
+
+
+def elastic_of(CV):
+    """(E, nu) of an isotropic stiffness (6, 6)."""
+    nu = CV[0, 1] / (CV[0, 0] + CV[0, 1])
+    return 2. * CV[3, 3] * (1. + nu), nu
+
+
+def locus_dirs(trained):
+    """14b's 256 training directions (unit J2 stress) and the analytic
+    Hill locus stress along each."""
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import jtensors as jt
+    X = trained['X']
+    rows = np.random.default_rng(8).choice(len(X), 256, replace=False)
+    u = torch.as_tensor(X[rows], dtype=torch.float64)
+    u = u / jt.seq_j2_voigt(u)[:, None]
+    hill = convert.material_from_params(
+        dict(hill=trained['hill'], sy=trained['mat'].sy, khard=0.,
+             drucker=0.), is_svc=False, dtype=torch.float64, device='cpu')
+    return u, trained['mat'].sy / con.seq_hill(hill, u), hill
+
+
+def locus_rule(lerr):
+    """14b's rule: at least 95 % within 0.05, the median within 0.01."""
+    within = float((lerr <= 0.05).double().mean())
+    return within >= 0.95 and float(lerr.median()) <= 0.01, within
+
+
+def phase_compress(device, trained, card):
+    """15a: ``reduce_svc`` of 14a's SVC at 'auto' (abs_tol = 0.1
+    yf_tolerance, the doubling from 16 centers): k, the relative RKHS
+    error and the seconds; max |f - f~| on 2^16 probe stresses within
+    abs_tol (plus the float64 rounding of the sums); the compressed locus
+    against the analytic Hill locus by 14b's rule; then A and D at 2^20
+    points x k against their plain versions (phase 3's rules).  Returns
+    (compressed material record, checks)."""
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.config import yf_tolerance
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    p = trained['params']
+    E, nu = elastic_of(trained['CV'])
+    sy = trained['mat'].sy
+    mrec = convert.material_record_from(E, nu, sy=sy, svc=p)
+    sync(device)
+    t0 = time.perf_counter()
+    red = convert.compress_record(mrec, 'auto', device)
+    sync(device)
+    dt = time.perf_counter() - t0
+    m, k, rel = p['sv'].shape[0], red['sv_red'].shape[0], red['compress_rel']
+    abs_tol = 0.1 * yf_tolerance
+    f64 = dict(dtype=torch.float64, device=device)
+    sv, dc = (torch.as_tensor(p[n], **f64) for n in ('sv', 'dc'))
+    svr, dcr = (torch.as_tensor(red[n], **f64) for n in ('sv_red',
+                                                          'dc_red'))
+    wnorm = float(torch.sqrt(dc @ (torch.exp(-p['gamma'] * sk.rbf_d2(
+        sv, sv)) @ dc)))
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=(2 ** 16, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    x = torch.as_tensor(u * rng.uniform(0.3, 2.0, (2 ** 16, 1)), **f64)
+    err = 0.
+    for i in range(0, x.shape[0], 2 ** 13):
+        f = sk.svc_f_grad_plain(x[i:i + 2 ** 13], sv, dc, p['gamma'],
+                                p['rho'], with_grad=False)[0]
+        fr = sk.svc_f_grad_plain(x[i:i + 2 ** 13], svr, dcr, p['gamma'],
+                                 p['rho'], with_grad=False)[0]
+        err = max(err, float((f - fr).abs().max()))
+    rnd = 1e-12 * (float(dc.abs().sum()) + float(dcr.abs().sum()))
+    ok_err = err <= abs_tol + rnd and rel * wnorm <= abs_tol * (1. + 1e-9)
+    mat = convert.material_from_record(red, dtype=torch.float32,
+                                       device=device)
+    u_dir, s_hill, _ = locus_dirs(trained)
+    dist = con.ml_yf_dist(mat, (u_dir * sy).to(device=device,
+                                               dtype=torch.float32),
+                          torch.zeros(256, dtype=torch.float32,
+                                      device=device))
+    lerr = ((sy - dist.double().cpu()) - s_hill).abs() / s_hill
+    ok_loc, within = locus_rule(lerr)
+    ok = ok_err and ok_loc and k <= m
+    log(f'[15a compress] reduce_svc of the card-trained SVC ({m} SVs) at '
+        f"'auto' (abs_tol {abs_tol:.1e}): k {k} centers, relative RKHS error "
+        f'{rel:.3e} (|w|_H {wnorm:.4g}, absolute {rel * wnorm:.3e}), '
+        f'{dt:.3f} s; max|f - f~| on 2^16 probes {err:.3e} (bound '
+        f'{abs_tol:.1e} + {rnd:.1e}); compressed locus vs Hill: median '
+        f'{float(lerr.median()):.3e}, within 0.05 {100 * within:.1f} %, max '
+        f'{float(lerr.max()):.3e} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('the compression breaks its RKHS bound or moves the locus off '
+             'the Hill reference')
+    pred = dict(sv=red['sv_red'], dc=red['dc_red'], gamma=p['gamma'],
+                rho=p['rho'])
+    checks = dict(
+        svc_f_grad=[check_svc(device, 2 ** 20, pred, 10, card, n_ref=2 ** 16,
+                              plain_rows=2 ** 17)],
+        svc_decision=[check_svc_mm(device, 2 ** 20, pred, 10, card, 'D',
+                                   n_ref=2 ** 16, plain_rows=2 ** 17)])
+    log(f'[15a compress] A at 2^20 x {k}: {checks["svc_f_grad"][0][1]:.4f} '
+        f'ms, D {checks["svc_decision"][0][1]:.4f} ms (14b at x {m}: A '
+        f'{trained["served_ms"][0]:.4f}, D {trained["served_ms"][1]:.4f} '
+        f'ms)  [{card}]')
+    return dict(mrec=mrec, red=red, k=k, rel=rel, seconds=dt), checks
+
+
+def launches_now():
+    return {c.__name__: c.launches for c in counters()}
+
+
+#: bound of 15b's |glob_sig auto - raw| / |sigma_yy|: the f32 solve's own
+#: noise floor is about 1e-2 (``python -m pylabfea_tpu_torch.bridge_study``
+#: on an NVIDIA H100 80GB HBM3 at 700 W: one float32 ulp on the raw SVC's
+#: dual coefficients moves glob_sig by 8.5e-3 of sigma_yy at 1024^2, auto
+#: against raw 2.4e-2 in that run)
+SOLVE_NOISE = 5e-2
+
+
+def phase_bridge_solve(device, comp, trained, card, N=1024, eps=0.002):
+    """15b: ``solve_record`` (the body of ``solve_on_device``) at N x N
+    from a record built from arrays: phase 5's geometry (1 x 1, plane
+    strain, left / bottom supports, top displaced by eps), the compressed
+    card-trained SVC, compress='auto', f32, nsteps=20, n_inner=2; A, B and
+    D must launch, sigma_yy in (0.5 sy, 2 sy); then the same solve with
+    the raw SVC (compress=None): max |glob_sig auto - raw| / |sigma_yy|
+    within ``SOLVE_NOISE``."""
+    from pylabfea_tpu_torch import bridge
+    sy = trained['mat'].sy
+    out = {}
+    for name, mrec, compress in (('auto', comp['red'], 'auto'),
+                                 ('raw', comp['mrec'], None)):
+        rec = bridge.grid_record(N, N, [mrec], [trained['CV']],
+                                 bct=(0., eps), ubctop=(False, True))
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bridge.solve_record(rec, nsteps=20, n_inner=2,
+                                  compress=compress, device=device)
+        sync(device)
+        out[name] = (res, time.perf_counter() - t0, launches_now())
+    res, dt, launches = out['auto']
+    gsig = res['sgl'][-1]
+    diff = np.abs(gsig - out['raw'][0]['sgl'][-1]).max() / abs(gsig[1])
+    ok = (np.isfinite(res['u']).all() and np.isfinite(res['sig']).all()
+          and 0.5 * sy < gsig[1] < 2. * sy and diff <= SOLVE_NOISE
+          and all(launches[k] > 0 for k in ('svc_f_grad', 'k_apply',
+                                            'svc_decision')))
+    log(f'[15b solve_on_device] {N}x{N} record from arrays, SVC k '
+        f"{comp['k']}, compress='auto', f32, 20 steps x (n_inner 2): "
+        f'{dt:.3f} s ({dt / 20:.4f} s a step); raw '
+        f'{comp["red"]["sv"].shape[0]}'
+        f' SVs {out["raw"][1]:.3f} s ({out["raw"][1] / 20:.4f} s a step); '
+        f'glob_sig {np.array2string(gsig, precision=4, max_line_width=200)},'
+        f' sigma_yy {gsig[1]:.4f} in ({0.5 * sy:g}, {2 * sy:g}); |glob_sig '
+        f'auto - raw| / |sigma_yy| {diff:.3e} (bound {SOLVE_NOISE:g}); '
+        f'launches {launches} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('solve_on_device: non-finite fields, axial stress out of range, '
+             'auto and raw apart beyond the noise floor or kernels A/B/D not '
+             'launched')
+    return dict(launches=launches, seconds=dt, diff=diff)
+
+
+def phase_bridge_adaptive(device, comp, trained, card, N=1024, NS=32,
+                          eps_svc=0.0005):
+    """15c: ``solve_record_adaptive`` (the body of
+    ``solve_on_device_adaptive``) at N x N on ``tests/test_bridge.py``'s
+    ``_model`` (J2 sy 150, khard 1000, 4 x 4, top 0.002 LY, right edge
+    force-free) from arrays, f64, fast=True; B must launch.  Then the
+    compressed card-trained SVC at NS x NS, top eps_svc (twice its yield
+    strain), f64, fast=False: D, E and G must launch, G also in the
+    fixed-direction root find of the load-step scaling (``HostLaw.
+    ml_full_yf``)."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    f64 = torch.float64
+    j2 = convert.material_record_from(200.e3, 0.3, sy=150., khard=1000.)
+    rec = bridge.grid_record(N, N, [j2], [convert.elastic_cv(200.e3, 0.3)],
+                             LX=4., LY=4., bct=(0., 0.008),
+                             ubctop=(False, True))
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bridge.solve_record_adaptive(rec, dtype=f64, fast=True,
+                                       device=device)
+    sync(device)
+    dt = time.perf_counter() - t0
+    la = launches_now()
+    gsig = res['sgl'][-1]
+    ok = (np.isfinite(res['u']).all() and la['k_apply'] > 0
+          and 150. < gsig[1] < 300.)
+    log(f'[15c adaptive] J2 {N}x{N} f64 fast: {res["nsteps"]} increments, '
+        f'niter {res["niter"]}, {dt:.3f} s; sigma_yy {gsig[1]:.4f}; '
+        f'launches {la} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('solve_on_device_adaptive (J2, 1024^2): non-finite, sigma_yy '
+             'off or kernel B not launched')
+    rec = bridge.grid_record(NS, NS, [comp['red']], [trained['CV']],
+                             bct=(0., eps_svc), ubctop=(False, True))
+    fixed = []
+    orig = bridge.HostLaw.ml_full_yf
+
+    def counted(self, *a, **kw):
+        n0 = sk.svc_yf_root.launches
+        out = orig(self, *a, **kw)
+        fixed.append(sk.svc_yf_root.launches - n0)
+        return out
+
+    bridge.HostLaw.ml_full_yf = counted
+    try:
+        sync(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        res2 = bridge.solve_record_adaptive(rec, dtype=f64, fast=False,
+                                            device=device)
+        sync(device)
+    finally:
+        bridge.HostLaw.ml_full_yf = orig
+    dt2 = time.perf_counter() - t0
+    lb = launches_now()
+    gsig2 = res2['sgl'][-1]
+    sy = trained['mat'].sy
+    ok = (np.isfinite(res2['u']).all() and sum(fixed) > 0
+          and 0.5 * sy < gsig2[1] < 2. * sy
+          and all(lb[k] > 0 for k in ('svc_decision', 'svc_f_grad_mm',
+                                      'svc_yf_root')))
+    log(f'[15c adaptive] compressed SVC (k {comp["k"]}) {NS}x{NS} f64 '
+        f'faithful: {res2["nsteps"]} increments, niter {res2["niter"]}, '
+        f'{dt2:.3f} s; sigma_yy {gsig2[1]:.4f}; G in the fixed-direction '
+        f'root find {sum(fixed)} launches ({len(fixed)} calls); launches '
+        f'{lb} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('solve_on_device_adaptive (SVC, faithful): non-finite, '
+             'sigma_yy off, kernels D/E/G not launched or G not in the '
+             'fixed-direction root find')
+    return dict(launches={k: la[k] + lb[k] for k in la}, seconds=(dt, dt2),
+                res2=res2, rec2=rec)
+
+
+def hill_j2(hill, d):
+    """J2 stress at the Hill locus along the stress direction d (6,)."""
+    import torch
+    from pylabfea_tpu_torch.ops import constitutive as con
+    from pylabfea_tpu_torch.ops import jtensors as jt
+    d = torch.as_tensor(np.asarray(d, float))[None]
+    return float(hill.sy * jt.seq_j2_voigt(d) / con.seq_hill(hill, d))
+
+
+def onset_direction(sel, CVps):
+    """The elastic stress direction of a ``calc_properties`` load case:
+    uniaxial stress for 'stx' / 'sty' (one edge displaced, the other
+    free), CVps (eps_x, eps_y) where both edges are displaced."""
+    from pylabfea_tpu_torch import bridge
+    uniax, fx, fy = bridge.LOAD_CASES[sel]
+    if uniax == 'x':
+        return np.eye(6)[0]
+    if uniax == 'y':
+        return np.eye(6)[1]
+    return CVps @ np.array([fx, fy, 0., 0., 0., 0.])
+
+
+def phase_bridge_props(device, comp, trained, card, Nel=256, eps=0.001,
+                       nsteps=10):
+    """15d: ``properties_record`` (the body of
+    ``calc_properties_on_device``) of the compressed SVC at Nel x Nel,
+    f32, total strain ``eps`` in the touch step and ``nsteps`` more (4
+    yield strains in 10 steps: a step's trial stress then overshoots the
+    locus by about a quarter of sy; at the default 0.005 in 20 steps it
+    overshoots by sy, and on fine meshes the 'sty' path's last stress
+    leaves the locus, JAX's too: ``data/bridge_props.npz``), the
+    four load cases: A, B and G must launch; prop and propJ2 yield
+    strengths beside the analytic Hill values of the training material
+    (rv [1.2, 1, 0.8, 1, 1, 1], sy 50), each within 5 %: propJ2 against
+    the locus along the elastic stress direction of the load case (the
+    onset), prop against the locus along the last stress."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    E, nu = elastic_of(trained['CV'])
+    CVps = convert.elastic_cv(E, nu, planestress=True)
+    _, _, hill = locus_dirs(trained)
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    props = bridge.properties_record(comp['red'], Nel=Nel, eps=eps,
+                                     nsteps=nsteps, dtype=torch.float32,
+                                     device=device)
+    sync(device)
+    dt = time.perf_counter() - t0
+    la = launches_now()
+    rows, ok = [], True
+    for sel in bridge.LOAD_CASES:
+        r = props[sel]
+        on = hill_j2(hill, onset_direction(sel, CVps))
+        fin = hill_j2(hill, r['sigeps']['sig'][-1])
+        e1 = abs(r['propJ2']['ys'] - on) / on
+        e2 = abs(r['prop']['ys'] - fin) / fin
+        ok &= e1 <= 0.05 and e2 <= 0.05
+        rows.append(f'{sel} propJ2 ys {r["propJ2"]["ys"]:.4f} (Hill onset '
+                    f'{on:.4f}, {e1:.2%}), prop ys {r["prop"]["ys"]:.4f} '
+                    f'(Hill at the last stress {fin:.4f}, {e2:.2%}), touch '
+                    f'scale {r["scale"]:.4f}')
+    ok &= all(la[k] > 0 for k in ('svc_f_grad', 'k_apply', 'svc_yf_root'))
+    log(f'[15d calc_properties] compressed SVC {Nel}x{Nel} f32, eps {eps:g},'
+        f' 4 cases x {nsteps + 1} steps: {dt:.3f} s; ' + '; '.join(rows)
+        + f'; launches {la} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('calc_properties_on_device: yield strengths off the Hill '
+             'reference or kernels A/B/G not launched')
+    return dict(launches=la, seconds=dt)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_bridge_card_vs_cpu(device, comp, card):
+    """15e: the committed records (``pylabfea_tpu_torch/data/bridge_*.npz``)
+    solved in f64 on the card and on the CPU: the reference's golden values
+    of ``ACCURACY.md`` (bcnode, ML-Hill-6D shear) or the host solver's
+    results (the bars) within 1e-6, the resume case within 1e-6 of the JAX
+    device solver's fields and within ``tests/test_bridge.py``'s
+    tolerances of the host solver's; the card against the JAX device
+    solver's committed fields and against the port on the CPU within 1e-9
+    (u, sig, the history), the ML shear record against JAX's fields alone
+    (``NO_CPU``).  Then ``hessian``, ``epl_dot`` and ``c_tan`` of the
+    compressed SVC on the card against the CPU, 1e-12."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    from pylabfea_tpu_torch.ops import constitutive as con
+    f64 = torch.float64
+    for name in BRIDGE_FIXTURES:
+        rec = bridge.load_record(os.path.join(DATA, f'bridge_{name}.npz'))
+        t0 = time.perf_counter()
+        card_res = bridge.run_record(rec, dtype=f64, device=device)
+        t1 = time.perf_counter()
+        cpu_res = None if name in NO_CPU else bridge.run_record(
+            rec, dtype=f64, device='cpu')
+        t2 = time.perf_counter()
+        gold = []
+        if 'gold.ref' in rec:
+            for f, i, c, ref in zip(rec['gold.field'], rec['gold.index'],
+                                    rec['gold.comp'], rec['gold.ref']):
+                v = card_res[str(f)]
+                v = v if i < 0 else v[i]
+                v = v if c < 0 else v[c]
+                gold.append(abs(v - ref) / abs(ref))
+        elif name == 'resume':
+            gold = [_rel(card_res[k], rec[f'jax.{k}'])
+                    for k in ('u', 'sig', 'sgl')]
+        else:
+            gold = [_rel(card_res[k], rec[f'host.{k}'])
+                    for k in ('u', 'sig', 'sgl')]
+        host_ok = True
+        if name == 'resume':
+            host_ok = (np.abs(card_res['u'] - rec['host.u']).max() < 1e-7
+                       and np.abs(card_res['sig']
+                                  - rec['host.sig']).max() < 1e-3)
+        fields = ('u', 'sig', 'sgl')
+        cj = max(_rel(card_res[k], rec[f'jax.{k}']) for k in fields)
+        cc = cj if cpu_res is None else max(_rel(card_res[k], cpu_res[k])
+                                            for k in fields)
+        ok = max(gold) <= 1e-6 and max(cc, cj) <= 1e-9 and host_ok
+        cpu = 'not run' if cpu_res is None else f'{cc:.3e}'
+        log(f'[15e records] {name} ({rec["solver"]}): golden max rel '
+            f'{max(gold):.3e} (bound 1e-6), card vs JAX fields {cj:.3e}, '
+            f'card vs CPU {cpu} (bound 1e-9); card {t1 - t0:.3f} s, CPU '
+            f'{t2 - t1:.3f} s {"ok" if ok else "FAIL"}  [{card}]')
+        if not ok:
+            fail(f'bridge record {name}: golden values or card vs CPU off')
+    mat = convert.material_from_record(comp['red'], dtype=f64, device=device)
+    matc = convert.material_from_record(comp['red'], dtype=f64,
+                                        device='cpu')
+    sig_np, deps_np = return_map_states(256, seed=12, sy=mat.sy)
+    CV = np.asarray(comp['CV'])
+    errs = {}
+    for dev, m in ((device, mat), ('cpu', matc)):
+        t = dict(dtype=f64, device=dev)
+        s, d = torch.as_tensor(sig_np, **t), torch.as_tensor(deps_np, **t)
+        C = torch.as_tensor(CV, **t)
+        peeq = torch.zeros(256, **t)
+        errs[str(dev)] = [con.hessian(m, s).cpu(),
+                          con.epl_dot(m, s, peeq, C, d).cpu(),
+                          con.c_tan(m, s, C).cpu()]
+    e = [_rel(a, b) for a, b in zip(errs[str(device)], errs['cpu'])]
+    ok = max(e) <= 1e-12
+    log(f'[15e records] hessian, epl_dot, c_tan of the compressed SVC on '
+        f'256 stresses, f64 card vs CPU: {", ".join(f"{x:.2e}" for x in e)}'
+        f' (bound 1e-12) {"ok" if ok else "FAIL"}')
+    if not ok:
+        fail('hessian / epl_dot / c_tan: card and CPU disagree')
+
+
+def phase_bridge(device, trained, card):
+    """Phase 15: the host-model bridge on records (15a-15e); the kernel
+    checks at the compressed width, E on the faithful solve's shape and G
+    on the fixed-direction root find's.  Returns launches by kernel and
+    the checks."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    marks = [('start', time.perf_counter())]
+    comp, checks = phase_compress(device, trained, card)
+    marks.append(('15a', time.perf_counter()))
+    comp['CV'] = trained['CV']
+    b = phase_bridge_solve(device, comp, trained, card)
+    marks.append(('15b', time.perf_counter()))
+    c = phase_bridge_adaptive(device, comp, trained, card)
+    marks.append(('15c', time.perf_counter()))
+    d = phase_bridge_props(device, comp, trained, card)
+    marks.append(('15d', time.perf_counter()))
+    launches = {k: b['launches'][k] + c['launches'][k] + d['launches'][k]
+                for k in b['launches']}
+    pred = dict(sv=comp['red']['sv_red'], dc=comp['red']['dc_red'],
+                gamma=trained['params']['gamma'],
+                rho=trained['params']['rho'])
+    NS = c['rec2']['NX']
+    checks['svc_f_grad_mm'] = [check_svc_mm(device, NS * NS, pred, 20, card,
+                                            'E')]
+    # G on the fixed-direction root find of 15c's first increment: every
+    # element's (zero) stress along the load direction, 2000 marching steps
+    rec = c['rec2']
+    mats = [convert.material_from_record(rec['materials'][0], dtype=dt,
+                                         device=device)
+            for dt in (torch.float32, torch.float64)]
+
+    def law_of(dtype):
+        return bridge.HostLaw.of(rec['materials'][0],
+                                 mats[dtype == torch.float64])
+
+    checks['svc_yf_root'] = [check_fixed_root(device, law_of, NS * NS,
+                                              bridge._load_direction(rec),
+                                              card)]
+    marks.append(('E, G checks', time.perf_counter()))
+    phase_bridge_card_vs_cpu(device, comp, card)
+    marks.append(('15e', time.perf_counter()))
+    total = marks[-1][1] - marks[0][1]
+    split = ', '.join(f'{n} {t - marks[i][1]:.1f}'
+                      for i, (n, t) in enumerate(marks[1:]))
+    log(f'[15 bridge] launches (15b-15d) {launches}; phase 15 {total:.1f} s '
+        f'({split} s)  [{card}]')
+    return dict(launches=launches, checks=checks, seconds=total)
+
+
+def check_fixed_root(device, law_of, N, ld, card):
+    """Kernel G in the fixed-direction root find (``HostLaw.ml_full_yf``,
+    2000 marching steps) against its plain version on the card, on N
+    stresses at 0.3-2 sy (the elastic trial states of an increment):
+    float64 distances within 1e-6 of their scale, float32 at least 48 of
+    64 sampled lanes within 1e-3; then kernel and plain float32 times and
+    the bound from the evaluations the kernel counted."""
+    import torch
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    rng = np.random.default_rng(13)
+    law32 = law_of(torch.float32)
+    sy = law32.host.sy
+    u = rng.normal(size=(N, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    sig_np = u * sy * rng.uniform(0.3, 2.0, (N, 1))
+    pick = np.random.default_rng(5).choice(N, 64, replace=False)
+    seen, errs = {}, []
+
+    def kernel(*a, **kw):
+        seen['call'] = a, kw
+        return sk.svc_yf_root(*a, **kw)
+
+    for dtype in (torch.float32, torch.float64):
+        law = law_of(dtype)
+        sig = torch.as_tensor(sig_np, dtype=dtype, device=device)
+        epl = torch.zeros_like(sig)
+        d = law.ml_full_yf(sig, epl, ld, root=kernel)
+        dp = law.ml_full_yf(sig, epl, ld, root=sk.svc_yf_root_plain)
+        sync(device)
+        scale = float(dp.abs().max())
+        diff = (d - dp).abs().double().cpu().numpy()
+        if dtype == torch.float64:
+            err = float(diff.max())
+            ok = err <= 1e-6 * scale
+        else:
+            agree = diff[pick] <= 1e-3 * scale
+            err = float(diff[pick][agree].max()) if agree.any() else np.inf
+            ok = int(agree.sum()) >= 48
+        log(f'[15 kernel G] fixed-direction root find N={N} '
+            f'nsv={law.dm.sv.shape[0]} {dtype} vs plain: max|err| {err:.3e} '
+            f'(scale {scale:.1f}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            fail('svc_yf_root in the fixed-direction root find disagrees '
+                 'with its plain version')
+        errs.append(err)
+        if dtype == torch.float32:
+            a, kw = seen['call']
+            evals = torch.zeros(N, dtype=torch.int32, device=device)
+            sk.svc_yf_root(*a, **kw, evals=evals)
+            nev = int(evals.sum())
+            ms = timed_ms(lambda: sk.svc_yf_root(*a, **kw), 10)
+            pms = timed_ms(lambda: sk.svc_yf_root_plain(*a, **kw), 1)
+            nsv, F = law.dm.sv.shape
+            bnd = bound_ms((a[0].numel() + 3 * N + (F + 1) * nsv) * 4 + N,
+                           nev * nsv * (2 * F + 7))
+    log(f'[15 kernel G] fixed-direction root find N={N} nsv={nsv} f32: '
+        f'kernel {ms:.4f} ms ({nev} evaluations, {nev / N:.1f} per lane), '
+        f'plain {pms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, '
+        f'{bnd[0] / ms:.0%} of it)  [{card}]')
+    return max(errs), ms, pms, bnd
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2244,6 +2782,9 @@ def main():
     phase_femu(device, card)
     phase_train_card_vs_cpu(device, card)
     check_graphs(card)
+    trained['served_ms'] = (served['checks']['svc_f_grad'][0][1],
+                            served['checks']['svc_decision'][0][1])
+    bridged = phase_bridge(device, trained, card)
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions
@@ -2303,6 +2844,14 @@ def main():
         letter, src, repl = sources[name]
         kernels.append(entry(f'{name}[card-trained]', src, repl,
                              served['launches'][name], chk))
+    # the bridge's path (phase 15): B at phase 3's 1024^2 shape, A and D
+    # at the compressed width, E on the faithful solve's shape, G in the
+    # fixed-direction root find
+    for name, chk in (('k_apply', eb),) + tuple(bridged['checks'].items()):
+        letter, src, repl = sources.get(
+            name, ('B', 'kapply2d.cu', 'stencil_pallas.py:138'))
+        kernels.append(entry(f'{name}[bridge]', src, repl,
+                             bridged['launches'][name], chk))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

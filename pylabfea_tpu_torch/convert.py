@@ -17,11 +17,22 @@ layout, which ``material_from_npz`` reads back; ``theta_from_arrays``
 carries a ``calibrate`` parameter dict and ``material_tree_from_params``
 the output of a ``femu`` material builder (one material or a tuple).
 Every function builds on the card unless ``device`` names another device.
+
+A host ``Material`` of the JAX package's host profile (or any object with
+its attributes) crosses as a *material record*, a dict of numpy values
+that ``material_record`` reads from the object's attributes, without
+importing its package: the parameters of ``device_material_from``
+(the JAX ``constitutive.device_material_from``) and those of the host
+methods that the bridge replays on the device (``calc_seq``,
+``_yf_rows``, ``_sflow_rows``, ``_ml_full_yf_rows``).  ``compress_record``
+adds a reduced-set compression of its SVC (``ops.svc.reduce_svc``);
+``material_from_record`` builds the DeviceMaterial.
 """
 import numpy as np
 import torch
 
-from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
+from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device, \
+    yf_tolerance
 from pylabfea_tpu_torch.ops.constitutive import DeviceMaterial
 from pylabfea_tpu_torch.ops.fe3d import MeshData3D, SolverState3
 from pylabfea_tpu_torch.ops.fe_kernels import MeshData, SolverState, \
@@ -289,3 +300,216 @@ def state3_from_arrays(arrays, dtype=DTYPE_DEVICE, device=None):
     if len(els) != 4 or els[0] != 36:
         raise ValueError('elstiff must be in volumes layout (36, NX, NY, NZ)')
     return SolverState3(**_state_tensors(arrays, dtype, device))
+
+
+# -----------------------------------------------------------------
+# host materials: records, compression, DeviceMaterial
+# -----------------------------------------------------------------
+def _opt(v, default):
+    return default if v is None else v
+
+
+def material_record(mat, tex=None):
+    """The material record of a host ``Material``, read by its attributes:
+    elastic constants (E, nu, C44), the analytic law (sy, or NaN for an
+    elastic material; khard, drucker, Voce, the host ``hill`` as it is with
+    ``hill_6p``, sdim, lhs, the tresca and barlat flags) and, for an ML
+    yield function (``ML_yf``), its SVC (sv, dc, rho, gamma), feature
+    scales, ``dev_only`` and, for a texture-trained one, the fitted
+    StandardScaler and the fixed descriptor ``tex`` in feature form (a
+    PCA-whitened ADV descriptor through the object's own
+    ``pca.transform``; the stress and work-hardening columns keep the
+    scaler).  Raises for a texture material without ``tex``."""
+    sy = getattr(mat, 'sy', None)
+    hill = np.ones(3) if getattr(mat, 'hill', None) is None \
+        else np.asarray(mat.hill, float)
+    lhs = getattr(mat, 'lhs', None)
+    rec = dict(
+        E=float(_opt(getattr(mat, 'E', None), np.nan)),
+        nu=float(_opt(getattr(mat, 'nu', None), np.nan)),
+        C44=float(_opt(getattr(mat, 'C44', None), np.nan)),
+        sy=np.nan if sy is None else float(sy),
+        khard=float(_opt(getattr(mat, 'khard', None), 0.)),
+        drucker=float(_opt(getattr(mat, 'drucker', None), 0.)),
+        voce_r=float(_opt(getattr(mat, 'voce_r', None), 0.)),
+        voce_b=float(_opt(getattr(mat, 'voce_b', None), 1.)),
+        hill=hill, hill_6p=bool(getattr(mat, 'hill_6p', False)),
+        sdim=int(_opt(getattr(mat, 'sdim', None), 0)),
+        lhs=np.zeros(0) if lhs is None else np.asarray(lhs, float),
+        tresca=bool(getattr(mat, 'tresca', False)),
+        barlat=bool(getattr(mat, 'barlat', False)),
+        ML_yf=bool(getattr(mat, 'ML_yf', False)))
+    if not rec['ML_yf']:
+        return rec
+    p = mat._svc
+    rec.update(sv=np.asarray(p.support_vectors, float),
+               dc=np.asarray(p.dual_coef, float),
+               rho=float(p.intercept), gamma=float(p.gamma),
+               scale_seq=float(mat.scale_seq),
+               scale_wh=float(getattr(mat, 'scale_wh', None) or 1.),
+               dev_only=bool(getattr(mat, 'dev_only', False)))
+    if bool(getattr(mat, 'txdat', False)):
+        if tex is None:
+            raise ValueError('texture-conditioned material: pass the fixed '
+                             'texture descriptor via tex=')
+        tx_raw = np.asarray(tex, dtype=float)
+        mean = np.asarray(mat.std_scaler.mean_, float)
+        scale = np.asarray(mat.std_scaler.scale_, float)
+        pca = getattr(mat, 'pca', None)
+        if pca is not None and 'ADV' in mat.msparam[0]['tx_descriptor']:
+            ind_tx = mat.ind_tx
+            tx_feat = np.asarray(pca.transform(tx_raw[None, :]), float)[0]
+            mean = np.concatenate([mean[:ind_tx], np.zeros(tx_feat.size)])
+            scale = np.concatenate([scale[:ind_tx], np.ones(tx_feat.size)])
+            tx_raw = tx_feat
+        rec.update(feat_mean=mean, feat_scale=scale, tex=tx_raw)
+    return rec
+
+
+def material_record_from(E, nu, sy=None, khard=0., hill=None, drucker=0.,
+                         voce_r=0., voce_b=1., sdim=6, svc=None,
+                         scale_seq=None, scale_wh=1., dev_only=False):
+    """The material record of a host ``Material`` made by ``elasticity(E=E,
+    nu=nu)`` and, with ``sy``, ``plasticity(sy=sy, khard=khard, hill=hill,
+    drucker=drucker, voce_r=voce_r, voce_b=voce_b, sdim=sdim)`` (hill ones
+    by default, ``hill_6p`` for six parameters), built from arrays;
+    ``svc`` (a dict of sv, dc, rho, gamma) makes it an ML yield function
+    with features over ``scale_seq`` (sy by default), as ``train_SVC``
+    leaves a material trained on an sdim=6 reference."""
+    hill = np.ones(sdim) if hill is None else np.asarray(hill, float)
+    hh = E / ((1. + nu) * (1. - 2. * nu))
+    rec = dict(E=float(E), nu=float(nu), C44=float((0.5 - nu) * hh),
+               sy=np.nan if sy is None else float(sy), khard=float(khard),
+               drucker=float(drucker), voce_r=float(voce_r),
+               voce_b=float(voce_b), hill=hill, hill_6p=hill.size == 6,
+               sdim=int(sdim), lhs=np.zeros(0), tresca=False, barlat=False,
+               ML_yf=svc is not None)
+    if svc is not None:
+        rec.update(sv=np.asarray(svc['sv'], float),
+                   dc=np.asarray(svc['dc'], float), rho=float(svc['rho']),
+                   gamma=float(svc['gamma']),
+                   scale_seq=float(sy if scale_seq is None else scale_seq),
+                   scale_wh=float(scale_wh), dev_only=bool(dev_only))
+    return rec
+
+
+def _compress_spec(compress):
+    """The cache key of a ``compress`` spec: 'auto' for True, else its
+    repr (an int and a float of one value are different specs)."""
+    return 'auto' if isinstance(compress, bool) or compress == 'auto' \
+        else repr(compress)
+
+
+def resolve_compress(params, compress, device=None):
+    """Reduced-set compression of SVCParams per the ``compress`` spec (the
+    JAX ``_resolve_compress``): True/'auto' = absolute decision-function
+    error budget of 10 % of the yield-tolerance band, a float = that
+    absolute bound, an int = the center count (bool checked before int).
+    Returns (reduced params, relative RKHS error)."""
+    from pylabfea_tpu_torch.ops.svc import reduce_svc
+    if isinstance(compress, bool) or compress == 'auto':
+        if not compress:
+            return params, 0.
+        return reduce_svc(params, abs_tol=0.1 * yf_tolerance, device=device)
+    if isinstance(compress, int):
+        return reduce_svc(params, n_out=compress, device=device)
+    return reduce_svc(params, abs_tol=float(compress), device=device)
+
+
+def compress_record(rec, compress, device=None):
+    """The record with its SVC compressed per ``compress`` (in
+    ``sv_red``, ``dc_red``, with ``compress_spec`` and the achieved
+    relative RKHS error ``compress_rel``; the raw ``sv``/``dc`` stay), on
+    ``device`` (the card unless given).  A record already compressed under
+    the same spec, an analytic record or a falsy ``compress`` is returned
+    as it is."""
+    from pylabfea_tpu_torch.ops.svc import SVCParams
+    if not compress or not rec.get('ML_yf'):
+        return rec
+    spec = _compress_spec(compress)
+    if str(rec.get('compress_spec', '')) == spec:
+        return rec
+    red, rel = resolve_compress(
+        SVCParams(rec['sv'], rec['dc'], float(rec['rho']),
+                  float(rec['gamma'])), compress, device)
+    return dict(rec, sv_red=np.asarray(red.support_vectors, float),
+                dc_red=np.asarray(red.dual_coef, float),
+                compress_spec=spec, compress_rel=float(rel))
+
+
+def compress_host(mat, rec, compress, device=None):
+    """``compress_record`` through the host material's cache
+    (``mat._svc_reduced``, the JAX convention): a hit needs the same spec
+    and the same ``mat._svc`` object (retraining replaces it, and a stale
+    reduced set would be a wrong yield surface); sets
+    ``mat.svc_compress_rel``."""
+    from pylabfea_tpu_torch.ops.svc import SVCParams
+    if not compress or not rec.get('ML_yf'):
+        return rec
+    spec = _compress_spec(compress)
+    cached = getattr(mat, '_svc_reduced', None)
+    if cached is not None and cached[0] == spec and cached[3] is mat._svc:
+        p, rel = cached[1], cached[2]
+        rec = dict(rec, sv_red=np.asarray(p.support_vectors, float),
+                   dc_red=np.asarray(p.dual_coef, float),
+                   compress_spec=spec, compress_rel=float(rel))
+    else:
+        rec = compress_record(rec, compress, device)
+        mat._svc_reduced = (spec, SVCParams(
+            rec['sv_red'], rec['dc_red'], float(rec['rho']),
+            float(rec['gamma'])), rec['compress_rel'], mat._svc)
+    mat.svc_compress_rel = rec['compress_rel']
+    return rec
+
+
+def material_from_record(rec, dtype=DTYPE_DEVICE, device=None):
+    """The DeviceMaterial of a material record, as the JAX
+    ``device_material_from`` builds it: an ML material with its SVC (the
+    compressed one where the record holds it) and hill ones; an elastic
+    one (sy NaN) with the ``ELASTIC_SY`` sentinel; an analytic one with
+    its hill padded to six by ones and sdim=3 semantics.  Tresca, Barlat
+    and LHS raise (no device form)."""
+    if rec['ML_yf']:
+        red = 'sv_red' in rec
+        params = dict(hill=np.ones(6), sy=float(rec['sy']),
+                      khard=float(rec['khard']), drucker=0.,
+                      sv=rec['sv_red'] if red else rec['sv'],
+                      dc=rec['dc_red'] if red else rec['dc'],
+                      rho=float(rec['rho']), gamma=float(rec['gamma']),
+                      scale_seq=float(rec['scale_seq']),
+                      scale_wh=float(rec['scale_wh']))
+        for k in ('feat_mean', 'feat_scale', 'tex'):
+            if k in rec:
+                params[k] = rec[k]
+        return material_from_params(params, is_svc=True,
+                                    dev_only=bool(rec['dev_only']),
+                                    dtype=dtype, device=device)
+    if np.isnan(float(rec['sy'])):
+        return elastic_material(dtype=dtype, device=device)
+    if rec['tresca'] or rec['barlat'] or np.size(rec['lhs']):
+        raise NotImplementedError(
+            'device constitutive path: Tresca/Barlat/LHS analytic criteria '
+            'run on the host profile (no analytic flow gradient)')
+    hill = np.ones(6)
+    hill[:np.size(rec['hill'])] = rec['hill']
+    return material_from_params(
+        dict(hill=hill, sy=float(rec['sy']), khard=float(rec['khard']),
+             drucker=float(rec['drucker']), voce_r=float(rec['voce_r']),
+             voce_b=float(rec['voce_b'])), is_svc=False,
+        sdim3=int(rec['sdim']) == 3, dtype=dtype, device=device)
+
+
+def device_material_from(mat, dtype=DTYPE_DEVICE, tex=None, compress=None,
+                         device=None):
+    """DeviceMaterial from a host ``Material`` (the JAX
+    ``constitutive.device_material_from``), read by its attributes
+    (``material_record``).  ``compress`` (SVC materials) serves a
+    reduced-set compression: True/'auto' bounds the absolute
+    decision-function error at 10 % of the yield-tolerance band, a float
+    sets that bound, an int the center count; the reduction is cached on
+    the host material (``compress_host``) and its relative RKHS error set
+    as ``mat.svc_compress_rel``; the host SVC stays untouched.  Builds on
+    the card unless ``device`` names another device (the compression runs
+    there too)."""
+    rec = compress_host(mat, material_record(mat, tex), compress, device)
+    return material_from_record(rec, dtype=dtype, device=device)

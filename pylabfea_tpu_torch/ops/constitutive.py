@@ -296,6 +296,48 @@ def fgrad(m: DeviceMaterial, sig, epl=None):
     return _seq_grad_analytic(m, sig)[1]
 
 
+def hessian(m: DeviceMaterial, sig, epl=None):
+    """Hessian (N, 6, 6) of the SVC yield function w.r.t. stress (the JAX
+    ``hessian``, the device twin of ``Material.calc_hessian``): the RBF
+    Hessian of the feature rows (``svc.decision_hessian``, direct
+    differences), its stress block scaled by the host's conventions: a
+    single 1/scale_seq without a StandardScaler (the reference's
+    convention, material.py:645-650), and (1/scale_seq)^2 per component
+    with one, as the JAX package writes it.  SVC materials with 6-D
+    stress features only; no kernel (none in the JAX package either)."""
+    from pylabfea_tpu_torch.ops.svc import decision_hessian
+    if not m.is_svc or m.sv.shape[-1] == 2:
+        raise NotImplementedError('hessian: SVC materials with 6-D stress '
+                                  'features only')
+    h6 = decision_hessian(m.sv, m.dc, m.gamma,
+                          _features(m, sig, epl))[:, 0:6, 0:6]
+    if m.tex.shape[0] > 0:
+        sf = 1. / (sig.new_ones(6) * m.scale_seq)
+        return h6 * (sf[:, None] * sf[None, :])[None]
+    return h6 / m.scale_seq
+
+
+def epl_dot(m: DeviceMaterial, sig, peeq, CV, deps, epl=None):
+    """Associated plastic strain increment (Crisfield ch. 6; the JAX
+    ``epl_dot``): lam a with lam = (C a).deps / (a.C a + khard) on the
+    lanes whose trial stress sig + C deps yields, 0 elsewhere."""
+    yfun = yf(m, sig + deps @ CV.T, peeq, epl)
+    _, a, kh = yf_and_fgrad(m, sig, peeq, epl)
+    ca = a @ CV.T
+    hh = torch.sum(ca * a, dim=-1) + kh
+    lam = torch.sum(ca * deps, dim=-1) / hh
+    return torch.where((yfun > yf_tolerance)[:, None], lam[:, None] * a, 0.)
+
+
+def c_tan(m: DeviceMaterial, sig, CV, epl=None):
+    """Consistent tangent Ct = C - (C a)(C a)^T / (a.C a + khard) at zero
+    equivalent plastic strain (the JAX ``c_tan``), (N, 6, 6)."""
+    _, a, kh = yf_and_fgrad(m, sig, sig.new_zeros(sig.shape[0]), epl)
+    ca = a @ CV.T
+    hh = torch.sum(ca * a, dim=-1) + kh
+    return CV[None] - ca[:, :, None] * ca[:, None, :] / hh[:, None, None]
+
+
 def yf_and_fgrad(m: DeviceMaterial, sig, peeq, epl=None):
     """Fused yield function + stress gradient + hardening modulus (one
     kernel pass for SVC).  Returns (f, g (N, 6), khard: a float for SVC, a
@@ -487,8 +529,8 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1,
     of ``torch.autograd``, ``forward_ad`` and ``torch.func``), analytic
     materials only.  An SVC material raises when a derivative is asked
     for: the derivative of its return map needs the second derivative of
-    the decision function (``hessian``), which the port does not have,
-    and its kernels take no derivative.
+    the decision function inside the kernels (``hessian`` gives it on
+    its own), and the kernels take no derivative.
 
     On the card an analytic fixed-trip call replays its launches from a
     CUDA graph (``graphs.Graphed``, one per input signature) when no
@@ -502,9 +544,9 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1,
                                        m.hill):
         raise NotImplementedError(
             'response_fast: a derivative through an SVC return map needs '
-            'the second derivative of the decision function (hessian), '
-            'which the port does not have; derivatives are taken of '
-            'analytic materials only')
+            'the second derivative of the decision function (hessian) '
+            'inside the kernels, which take no derivative; derivatives are '
+            'taken of analytic materials only')
     if fixed_trip and not m.is_svc:
         return _FIXED_TRIP(m, state, deps, CV, maxiter, nsub)
     return _response_fast(m, state, deps, CV, maxiter, nsub, fixed_trip)

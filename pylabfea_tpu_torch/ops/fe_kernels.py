@@ -23,7 +23,9 @@ The flat layout (``grid=None``, ``femu.flatten_mesh``) keeps nodal vectors
 as (Ndof,) with dof = comp * nnode + node and the element dofs in
 ``dofs``; its operator is a gather, a batched (Nel, 8, 8) product and a
 scatter-add (``k_apply``), solved by Jacobi-preconditioned CG
-(``cg_solve``, ``solve_linear``).  Nothing on it is a kernel of its own.
+(``cg_solve``, ``solve_linear``, and ``load_step_split``'s flat branch;
+per-element B tables carry the 1-D bars).  Nothing on it is a kernel of
+its own.
 """
 import dataclasses
 import warnings
@@ -644,6 +646,12 @@ def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
     fy, sig_n, depl_n, grad = respond_grouped(
         md, mat, CV, state.sig, state.epl, deps, fast=fast, maxiter=12,
         nsub=nsub)
+    if md.grid is None:
+        dst = torch.linalg.norm((state.elstiff - grad).reshape(md.nel, -1),
+                                dim=1)
+        elstiff = torch.where((dst > 1.e-3)[:, None, None], grad,
+                              state.elstiff)
+        return fy, sig_n, depl_n, elstiff, deps, dst.max()
     gP = elstiff_planes(md, grad)
     dst = torch.sqrt(torch.sum((state.elstiff - gP) ** 2, dim=0))
     elstiff = torch.where(dst > 1.e-3, gP, state.elstiff)
@@ -690,7 +698,9 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     """One load step: rounds of (MG-CG solve with the current tangent
     field, return map, tangent update), ``n_inner + 1`` of them or, with
     ``gate``, until the convergence gate fires (the JAX
-    ``load_step_split``).
+    ``load_step_split``).  A flat mesh (``grid=None``: the 1-D bars of the
+    bridge) solves with Jacobi-CG (``solve_linear``) warm-started from the
+    last increment, and compares tangents per element row.
 
     ``du0`` warm-starts the first solve (the previous step's ``diag['du']``
     at equal load fractions); ``kes0``/``dst0`` pass the previous step's
@@ -738,19 +748,27 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     i = 0
     total_count = count + (MAX_INNER if faithful_tail else 0)
     while i < total_count:
-        if kes is None or dst is None or dst > 1.e-3:
-            kes = _hier_kes(md, elstiff)
-        if du is None:
-            x0 = torch.zeros_like(bc_val)
-        elif dst is None or f64 or dst <= 1.e-3:
-            x0 = du
+        if md.grid is None:
+            # flat meshes: Jacobi-CG warm-started from the last increment
+            du, cg_res, cg_it = solve_linear(md, elstiff, bc_val, force, tol,
+                                             cg_maxiter, x0=du)
+            if n_refine:
+                du = refine_du_flat(md, elstiff, du, bc_val, force, tol,
+                                    cg_maxiter, n=n_refine)
         else:
-            x0 = torch.zeros_like(du)
-        du, cg_res, cg_it = _mg_solve(md, kes, bc_val, force, tol,
-                                      cg_maxiter, x0)
-        if n_refine:
-            du = refine_du(md, kes, elstiff, du, bc_val, force, tol,
-                           cg_maxiter, n=n_refine)
+            if kes is None or dst is None or dst > 1.e-3:
+                kes = _hier_kes(md, elstiff)
+            if du is None:
+                x0 = torch.zeros_like(bc_val)
+            elif dst is None or f64 or dst <= 1.e-3:
+                x0 = du
+            else:
+                x0 = torch.zeros_like(du)
+            du, cg_res, cg_it = _mg_solve(md, kes, bc_val, force, tol,
+                                          cg_maxiter, x0)
+            if n_refine:
+                du = refine_du(md, kes, elstiff, du, bc_val, force, tol,
+                               cg_maxiter, n=n_refine)
         cg_hist.append(cg_it)
         fy, sig_n, depl_n, elstiff, deps, dst_t = _respond_and_update(
             md, dataclasses.replace(state, elstiff=elstiff), mat, CV, du,

@@ -174,10 +174,14 @@ def _coarse_dense(level: MGLevel):
 
 
 def _make_level(cur_md, Ke):
-    """MGLevel from mesh metadata + element-stiffness planes."""
+    """MGLevel from mesh metadata + element-stiffness planes.  A level with
+    an odd element count is the coarsest (``mesh_chain`` stops there) and
+    gets no restriction pair, which needs even counts (the JAX package
+    builds the pair only when it restricts)."""
     fixT = fek._split(cur_md.fixed)
-    return MGLevel(cur_md, Ke, fek.k_diag_t(cur_md, Ke, fixT), fixT,
-                   _transfer_mats(cur_md))
+    NX, NY = cur_md.grid[:2]
+    W = None if NX % 2 or NY % 2 else _transfer_mats(cur_md)
+    return MGLevel(cur_md, Ke, fek.k_diag_t(cur_md, Ke, fixT), fixT, W)
 
 
 def build_hierarchy(md: fek.MeshData, elstiff, min_size=8, attach_inv=True):

@@ -181,15 +181,15 @@ MAXMARCH = 400
 MAXITER = 100
 
 
-def _march(f_of, x, fac, active_of):
+def _march(f_of, x, fac, active_of, maxmarch=MAXMARCH):
     """Geometric bracket marching: scale the active lanes' abscissae by
-    ``fac`` until no lane is active or ``MAXMARCH`` steps have run.  The
+    ``fac`` until no lane is active or ``maxmarch`` steps have run.  The
     inactive lanes are frozen, so reading the active flag on the host
     every ``rootfind.check_every(x)`` steps gives the JAX while_loop's
     result."""
     f = f_of(x)
     it, every = 0, rootfind.check_every(x)
-    while it < MAXMARCH:
+    while it < maxmarch:
         act = active_of(x, f)
         if it % every == 0 and not bool(act.any()):
             break
@@ -237,7 +237,8 @@ class FeatureMap:
 
 
 def svc_yf_root_plain(su, start, top, sv, dc, gamma: float, rho: float,
-                      fmap: FeatureMap, xtol=1.e-5, rtol=rootfind._RTOL):
+                      fmap: FeatureMap, xtol=1.e-5, rtol=rootfind._RTOL,
+                      maxmarch=MAXMARCH):
     """Plain PyTorch version of ``svc_yf_root``: the two marching loops and
     ``rootfind.brent`` (its plain step) over the plain decision function,
     on whole tensors with a host read of the active flags."""
@@ -245,8 +246,10 @@ def svc_yf_root_plain(su, start, top, sv, dc, gamma: float, rho: float,
         return svc_f_grad_plain(fmap(x[:, None] * su), sv, dc, gamma, rho,
                                 with_grad=False)[0]
 
-    x0 = _march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01))
-    x1 = _march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < top))
+    x0 = _march(f_of, start, 0.98, lambda x, f: (f >= 0.) & (x > 0.01),
+                maxmarch)
+    x1 = _march(f_of, start, 1.02, lambda x, f: (f < 0.) & (x < top),
+                maxmarch)
     return rootfind.brent(f_of, x0, x1, xtol=xtol, rtol=rtol,
                           maxiter=MAXITER, step=rootfind.brent_step_plain)
 
@@ -282,11 +285,11 @@ def _check_fmap(su, sv, fmap: FeatureMap):
 
 def svc_yf_root(su, start, top, sv, dc, gamma: float, rho: float,
                 fmap: FeatureMap, xtol=1.e-5, rtol=rootfind._RTOL,
-                evals=None):
+                evals=None, maxmarch=MAXMARCH):
     """Kernel G: per lane i the root x of f(x) = decision function of the
     features ``fmap`` forms of ``x * su[i]``: march down from ``start``
     (x *= 0.98 while f >= 0 and x > 0.01), march up from ``start`` (x *=
-    1.02 while f < 0 and x < ``top``), each at most ``MAXMARCH`` steps,
+    1.02 while f < 0 and x < ``top``), each at most ``maxmarch`` steps,
     then Brent on the bracket (at most ``MAXITER`` iterations).  su (N, 6)
     (or (N, 3), cylindrical), start and top (N,), sv and dc as
     ``svc_f_grad``.  Returns (xs (N,), ok (N,) bool): the root where
@@ -297,7 +300,7 @@ def svc_yf_root(su, start, top, sv, dc, gamma: float, rho: float,
             raise ValueError('svc_yf_root: evals is counted by the kernel '
                              'only')
         return svc_yf_root_plain(su, start, top, sv, dc, gamma, rho, fmap,
-                                 xtol, rtol)
+                                 xtol, rtol, maxmarch)
     _check_svc('svc_yf_root', su, sv, dc)
     if su.dim() != 2 or not su.is_contiguous():
         raise ValueError('svc_yf_root: su must be a contiguous matrix')
@@ -333,7 +336,7 @@ def svc_yf_root(su, start, top, sv, dc, gamma: float, rho: float,
                  ptr(fmap.scale), start.data_ptr(), top.data_ptr(),
                  sv.data_ptr(), dc.data_ptr(), N, sv.shape[0], sv.shape[1],
                  float(gamma), float(rho), float(fmap.scale_seq),
-                 int(fmap.dev_only), int(fmap.cyl), MAXMARCH, MAXITER,
+                 int(fmap.dev_only), int(fmap.cyl), int(maxmarch), MAXITER,
                  float(xtol), float(rtol), xs.data_ptr(), ok.data_ptr(),
                  ptr(evals), stream)
     build.check(err, 'svc_yf_root')

@@ -755,3 +755,66 @@ def test_fixed_trip_graphs_take_new_floats_and_stay_bounded(cuda):
         sig, epl, deps = states(n)
         con.response_fast(mat, (sig, epl), deps, CV, 12, fixed_trip=True)
     assert len(ft.graphs) == graphs.MAX_GRAPHS and not ft.failed
+
+
+@pytest.mark.parametrize('name', ['bcnode', 'resume', 'bar_sf2'])
+def test_bridge_records_on_the_card_match_the_cpu(cuda, name):
+    """The committed bridge records solved in f64 on the card (kernel B,
+    the flat Jacobi-CG of the bars) and on the CPU agree within 1e-9."""
+    from pylabfea_tpu_torch import bridge
+    rec = bridge.load_record(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'pylabfea_tpu_torch', 'data', f'bridge_{name}.npz'))
+    f64 = torch.float64
+    card = bridge.run_record(rec, dtype=f64, device=cuda)
+    cpu = bridge.run_record(rec, dtype=f64, device='cpu')
+    for k in ('u', 'f', 'sig', 'sgl'):
+        a, b = card[k], cpu[k]
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), k
+
+
+def test_fixed_direction_root_find_kernel_matches_plain(cuda):
+    """``HostLaw.ml_full_yf`` through kernel G (2000 marching steps, the
+    load direction of every row) against G's plain version on the card:
+    f64 distances within 1e-6 of their scale; G launched once."""
+    from pylabfea_tpu_torch import bridge
+    rec = bridge.load_record(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'pylabfea_tpu_torch', 'data', 'bridge_ml_shear.npz'))
+    mrec = rec['materials'][0]
+    f64 = torch.float64
+    law = bridge.HostLaw.of(mrec, convert.material_from_record(
+        mrec, dtype=f64, device=cuda))
+    rng = np.random.default_rng(3)
+    sig = torch.as_tensor(rng.normal(0., 40., (333, 6)), dtype=f64,
+                          device=cuda)
+    epl = torch.as_tensor(rng.normal(0., 1e-3, (333, 6)), dtype=f64,
+                          device=cuda)
+    for ld in (np.eye(6)[5], np.eye(6)[0] - np.eye(6)[1]):
+        n0 = sk.svc_yf_root.launches
+        d = law.ml_full_yf(sig, epl, ld)
+        assert sk.svc_yf_root.launches == n0 + 1
+        dp = law.ml_full_yf(sig, epl, ld, root=sk.svc_yf_root_plain)
+        assert float((d - dp).abs().max()) <= 1e-6 * float(dp.abs().max())
+
+
+def test_reduce_svc_on_the_card_matches_the_cpu(cuda):
+    """``reduce_svc`` in f64 on the card: the CPU's center count and
+    relative RKHS error, the reduced decision function within 1e-6."""
+    from pylabfea_tpu_torch.ops import svc as tsvc
+    z = np.load(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'REF_SOLVE_svc.npz'))
+    p = tsvc.SVCParams(z['support_vectors'], z['dual_coef'],
+                       float(z['intercept']), float(z['gamma']))
+    rc, relc = tsvc.reduce_svc(p, n_out=32, device=cuda)
+    rh, relh = tsvc.reduce_svc(p, n_out=32, device='cpu')
+    assert rc.support_vectors.shape == rh.support_vectors.shape
+    assert abs(relc - relh) <= 1e-6 * relh
+    x = torch.as_tensor(np.random.default_rng(0).normal(0., 0.6, (512, 6)))
+    fc = tsvc.decision_function(torch.as_tensor(rc.support_vectors),
+                                torch.as_tensor(rc.dual_coef), p.intercept,
+                                p.gamma, x)
+    fh = tsvc.decision_function(torch.as_tensor(rh.support_vectors),
+                                torch.as_tensor(rh.dual_coef), p.intercept,
+                                p.gamma, x)
+    assert float((fc - fh).abs().max()) <= 1e-6 * float(fh.abs().max())

@@ -96,6 +96,30 @@ def test_hierarchy_matches_jax():
         np.testing.assert_array_equal(a.fixed.numpy(), np.asarray(b.fixed))
 
 
+def test_odd_coarsest_level_matches_jax():
+    """An 18 x 18 grid coarsens once, to 9 x 9, whose odd element count
+    ends the chain: the hierarchy and an MG-CG solve match JAX's (the
+    port built a restriction pair for that level too, which needs even
+    counts, and raised)."""
+    _, _, CV, _ = _materials()
+    kw = dict(LX=1., LY=1., eps_tot=0.002)
+    md = jfek.rect_mesh(18, 18, dtype=F64, **kw)
+    mt = tfek.rect_mesh(18, 18, dtype=torch.float64, device='cpu', **kw)
+    els = CV.reshape(36, 1, 1) * np.random.default_rng(1).uniform(
+        0.5, 1.5, (1, 18, 18))
+    kt = tfek._hier_kes(mt, torch.tensor(els))
+    kj = jfek._hier_kes_jit(md, jnp.asarray(els))
+    # 18^2 and 9^2 planes, then the dense inverse of the 9^2 level
+    assert [tuple(k.shape) for k in kt] == [tuple(k.shape) for k in kj] \
+        == [(8, 8, 18, 18), (8, 8, 9, 9), (200, 200)]
+    for a, b in zip(kt, kj):
+        assert _rel(a.numpy(), b) <= 1e-10
+    du, _, _ = tfek._mg_solve(mt, kt, mt.fixed_val, torch.zeros_like(
+        mt.fixed_val), 1e-11, 100, torch.zeros_like(mt.fixed_val))
+    duj, _, _ = jfek.solve_linear(md, jnp.asarray(els), md.fixed_val)
+    assert _rel(du.numpy(), duj) <= 1e-9
+
+
 def test_load_steps_match_jax():
     """A cold step and two warm-started steps (du0/kes0/dst0): u, sig, epl,
     elstiff to 1e-9 relative and identical CG iteration histories."""

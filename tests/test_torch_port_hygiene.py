@@ -10,10 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from pylabfea_tpu_torch import config, convert, ml_train
+from pylabfea_tpu_torch import bridge, config, convert, ml_train
 from pylabfea_tpu_torch.kernels import build
 from pylabfea_tpu_torch.ops import calibrate, fe3d, fe_kernels, rootfind, \
     stencil, volume
+from pylabfea_tpu_torch.ops import svc as tsvc
 from pylabfea_tpu_torch.ops import svc_kernels as sk
 
 # One torch thread: the suite runs several test processes at once, and
@@ -29,7 +30,7 @@ import sys
 import torch
 torch.set_num_threads(1)
 import pylabfea_tpu_torch
-from pylabfea_tpu_torch import convert, ml_train
+from pylabfea_tpu_torch import bridge, convert, ml_train
 from pylabfea_tpu_torch.kernels import build
 from pylabfea_tpu_torch.ops import (calibrate, constitutive, dual, fe3d,
                                     fe_kernels, femu, jtensors, multigrid,
@@ -66,12 +67,21 @@ sim = calibrate.simulate_paths(
 trained, score, _ = ml_train.train_svc(
     torch.tensor([[0.5] + [0.] * 5, [1.5] + [0.] * 5]),
     torch.tensor([-1., 1.]), 100., iters=20, **f64)
+rec = bridge.load_record('pylabfea_tpu_torch/data/bridge_bcnode.npz')
+res = bridge.run_record(rec, **cpu)
+j2rec = convert.material_record_from(200.e3, 0.3, sy=150., khard=500.)
+props = bridge.properties_record(j2rec, Nel=2, nsteps=2, load_cases=('sty',),
+                                 **f64)
+red, rel = svc.reduce_svc(svc.SVCParams(mat64.sv.numpy(), mat64.dc.numpy(),
+                                        mat64.rho, mat64.gamma), n_out=8,
+                          **cpu)
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
              or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
 assert not bad, bad
 print('clean', float(hist[-1][0][1]), float(hist4[-1][0][1]),
       float(hist3[-1][0][2]), [float(d[0]) for d in dist],
-      float(u_femu.abs().max()), float(sim[0, -1, 0]), score)
+      float(u_femu.abs().max()), float(sim[0, -1, 0]), score,
+      float(res['u'][684]), float(props['sty']['prop']['ys']), rel)
 """
 
 
@@ -142,6 +152,22 @@ def test_constructors_default_to_the_card(monkeypatch):
                                  np.eye(6))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         convert.theta_from_arrays({'log_sy': 5.})
+    # the bridge: materials, meshes and the solvers on records, the
+    # compression
+    j2 = convert.material_record_from(200.e3, 0.3, sy=150.)
+    rec = bridge.grid_record(2, 2, [j2], [convert.elastic_cv(200.e3, 0.3)])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.material_from_record(j2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        bridge.record_to_device(rec)
+    for solve in (bridge.solve_record, bridge.solve_record_adaptive):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            solve(rec)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        bridge.properties_record(j2, Nel=2)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        tsvc.reduce_svc(tsvc.SVCParams(np.eye(6)[:2], np.array([1., -1.]),
+                                       0., 1.), n_out=1)
 
 
 def test_no_port_source_imports_jax():
