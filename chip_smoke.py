@@ -90,7 +90,7 @@ used.  Phases, each of which must pass:
    compressed locus by 14b's rule), A and D at 2^20 points x k against
    their plain versions; 15b. ``solve_record`` (``solve_on_device``) at
    1024 x 1024 from a record built from arrays, compress 'auto' and
-   None, 20 steps (A, B, D); 15c. ``solve_record_adaptive`` on
+   None, 10 steps (A, B, D); 15c. ``solve_record_adaptive`` on
    ``tests/test_bridge.py``'s ``_model`` at 1024 x 1024 (J2, f64, fast;
    B) and on the compressed SVC at 32 x 32 (f64, faithful; D, E, G, G
    also in the fixed-direction root find), then E at that shape and G
@@ -99,7 +99,21 @@ used.  Phases, each of which must pass:
    (A, B, G) against the Hill locus of the training material; 15e. the
    committed records of ``ACCURACY.md``'s golden models
    (``pylabfea_tpu_torch/data/bridge_*.npz``) in f64 on the card and the
-   CPU, and ``hessian`` / ``epl_dot`` / ``c_tan`` card vs CPU.
+   CPU, and ``hessian`` / ``epl_dot`` / ``c_tan`` card vs CPU;
+16. ``bench.py``'s ``step_s_2048`` row: one cold and one warm 0.25
+   ``load_step_split`` at 2048 x 2048 with phase 5's SVC (the 'auto'
+   compression count printed beside it), which must launch A, B and D,
+   then B, A and D against their plain versions at its shapes;
+17. the domain decomposition (``pylabfea_tpu_torch.parallel``): 17a.
+   ``strip_load_step`` on phase 5's 1024 x 1024 geometry at world size 1
+   (two-level Schwarz; A and B) within 5e-3 of the unsharded step, with
+   both times; 17b. ``solve_uniaxial3_slab`` on the 64^3 box at world size
+   1 (C) within 1e-4 of ``fe3d.solve_uniaxial3``; 17c. strips at 256^2
+   (f32, f64, the grouped inclusion) and the slab at 32^3 on W ranks
+   spawned on the host (W = min(4, cards) under NCCL with two cards or
+   more, else 2 ranks on the one card under Gloo) against world size 1
+   (f32 1e-4, f64 1e-9, duplicated layers bitwise); then C at the slab
+   block shapes.  Phases 16 and 17 print their seconds (budget 150 s).
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after (also by feature count, ``launches_by_nfeat``).  The last
@@ -108,7 +122,9 @@ bound (a kernel at another feature count than 6 as ``name[F=n]``, with its
 launches on the path of phase 13 that ran it; A, D and G at the SVC
 trained in 14a as ``name[card-trained]``, with their launches in 14b;
 A, B, D, E and G on the bridge's path as ``name[bridge]``, with their
-launches in 15b-15d), and ``{"ok": true,
+launches in 15b-15d; A, B and D on the 2048^2 row as ``name[2048]``, B and
+A on 17a's strip as ``name[strip]``, C on 17b's slab as
+``k_apply3[slab]``), and ``{"ok": true,
 "device": {...}}``.
 Any failure raises and exits non-zero without those lines.
 """
@@ -143,7 +159,20 @@ def fail(msg):
     raise RuntimeError(f'chip_smoke: {msg}')
 
 
+#: seconds between consecutive log lines, summed by the phase that the
+#: later line's tag names ('[15b solve_on_device] ...' -> '15b'): a line
+#: reports the work that ran before it
+CLOCK = {'start': time.perf_counter(), 'last': time.perf_counter(),
+         'phases': {}}
+
+
 def log(msg):
+    now = time.perf_counter()
+    if msg.startswith('['):
+        phase = msg[1:].split(']')[0].split()[0]
+        CLOCK['phases'][phase] = CLOCK['phases'].get(phase, 0.) \
+            + now - CLOCK['last']
+    CLOCK['last'] = now
     print(msg, flush=True)
 
 
@@ -2287,13 +2316,16 @@ def launches_now():
 #: dual coefficients moves glob_sig by 8.5e-3 of sigma_yy at 1024^2, auto
 #: against raw 2.4e-2 in that run)
 SOLVE_NOISE = 5e-2
+#: 15b's load steps: the final strain in 10 steps (20 took twice the
+#: time of a run that must end within 1200 s)
+NSTEPS_15B = 10
 
 
 def phase_bridge_solve(device, comp, trained, card, N=1024, eps=0.002):
     """15b: ``solve_record`` (the body of ``solve_on_device``) at N x N
     from a record built from arrays: phase 5's geometry (1 x 1, plane
     strain, left / bottom supports, top displaced by eps), the compressed
-    card-trained SVC, compress='auto', f32, nsteps=20, n_inner=2; A, B and
+    card-trained SVC, compress='auto', f32, nsteps=10, n_inner=2; A, B and
     D must launch, sigma_yy in (0.5 sy, 2 sy); then the same solve with
     the raw SVC (compress=None): max |glob_sig auto - raw| / |sigma_yy|
     within ``SOLVE_NOISE``."""
@@ -2307,7 +2339,7 @@ def phase_bridge_solve(device, comp, trained, card, N=1024, eps=0.002):
         sync(device)
         reset_counts()
         t0 = time.perf_counter()
-        res = bridge.solve_record(rec, nsteps=20, n_inner=2,
+        res = bridge.solve_record(rec, nsteps=NSTEPS_15B, n_inner=2,
                                   compress=compress, device=device)
         sync(device)
         out[name] = (res, time.perf_counter() - t0, launches_now())
@@ -2319,10 +2351,10 @@ def phase_bridge_solve(device, comp, trained, card, N=1024, eps=0.002):
           and all(launches[k] > 0 for k in ('svc_f_grad', 'k_apply',
                                             'svc_decision')))
     log(f'[15b solve_on_device] {N}x{N} record from arrays, SVC k '
-        f"{comp['k']}, compress='auto', f32, 20 steps x (n_inner 2): "
-        f'{dt:.3f} s ({dt / 20:.4f} s a step); raw '
-        f'{comp["red"]["sv"].shape[0]}'
-        f' SVs {out["raw"][1]:.3f} s ({out["raw"][1] / 20:.4f} s a step); '
+        f"{comp['k']}, compress='auto', f32, {NSTEPS_15B} steps x (n_inner "
+        f'2): {dt:.3f} s ({dt / NSTEPS_15B:.4f} s a step); raw '
+        f'{comp["red"]["sv"].shape[0]} SVs {out["raw"][1]:.3f} s '
+        f'({out["raw"][1] / NSTEPS_15B:.4f} s a step); '
         f'glob_sig {np.array2string(gsig, precision=4, max_line_width=200)},'
         f' sigma_yy {gsig[1]:.4f} in ({0.5 * sy:g}, {2 * sy:g}); |glob_sig '
         f'auto - raw| / |sigma_yy| {diff:.3e} (bound {SOLVE_NOISE:g}); '
@@ -2679,6 +2711,308 @@ def check_fixed_root(device, law_of, N, ld, card):
     return max(errs), ms, pms, bnd
 
 
+# -----------------------------------------------------------------
+# the 2048^2 row (phase 16) and the domain decomposition (phase 17)
+# -----------------------------------------------------------------
+def phase_2048(device, card, N=2048):
+    """16: ``bench.py``'s ``step_s_2048`` row (``bench.py:328-359``): one
+    cold and one warm 0.25 ``load_step_split`` (n_inner 2) at N x N,
+    uniaxial y, the 135-SV SVC of ``REF_SOLVE_svc.npz``, float32.
+    ``bench.py`` serves that SVC through ``compress='auto'``, which keeps
+    every SV of it (the count is printed): the raw SVC is the same
+    configuration.  Kernels A, B and D must launch; then B, A and D
+    against their plain versions at the row's shapes.  Returns launches
+    and checks."""
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import fe_kernels as fek, svc
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    from pylabfea_tpu_torch.ops import stencil
+    t_phase = time.perf_counter()
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=torch.float32,
+                                             device=device)
+    red, rel = convert.resolve_compress(svc.SVCParams(
+        mat.sv.double().cpu().numpy(), mat.dc.double().cpu().numpy(),
+        mat.rho, mat.gamma), 'auto', device)
+    md = fek.rect_mesh(N, N, LX=1., LY=1., uniax='y', eps_tot=eps,
+                       dtype=torch.float32, device=device)
+    reset_counts()
+    st = fek.init_state(md, CV, dtype=torch.float32)
+    secs, iters = [], []
+    d = {}
+    for warm in (False, True):
+        kw = dict(du0=d['du'], kes0=d['kes'], dst0=d['dstiff']) \
+            if warm else {}
+        sync(device)
+        t0 = time.perf_counter()
+        st, d = fek.load_step_split(md, st, mat, CV, 0.25, n_inner=2, **kw)
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        iters.append(list(d['cg_iters_hist']))
+    launches = dict(k_apply=stencil.k_apply.launches,
+                    svc_f_grad=sk.svc_f_grad.launches,
+                    svc_decision=sk.svc_decision.launches)
+    gsig = d['glob_sig'].double().cpu().numpy()
+    fin = finite(st.u, st.sig, st.epl, st.elstiff)
+    ok = fin and 0.5 * SY < gsig[1] < 2. * SY and min(launches.values()) > 0
+    log(f'[16 2048^2] {N}x{N} load_step_split(0.25, n_inner=2), SVC nsv='
+        f'{mat.sv.shape[0]} (compress="auto" keeps '
+        f'{red.support_vectors.shape[0]} of them, relative RKHS error '
+        f'{rel:.3e}), f32: cold step '
+        f'{secs[0]:.4f} s, step_s_2048 (warm) {secs[1]:.4f} s; '
+        f'cg_iters_hist {iters}; glob_sig '
+        f'{np.array2string(gsig, precision=4)}; finite {fin}; launches '
+        f'{launches} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('2048^2 row: non-finite fields, sigma_yy outside (0.5 sy, 2 '
+             'sy) or kernel A, B or D not launched')
+    trained = dict(np.load(NPZ))
+    params = dict(sv=trained['support_vectors'], dc=trained['dual_coef'],
+                  gamma=float(trained['gamma']),
+                  rho=float(trained['intercept']))
+    checks = dict(
+        k_apply=[check_kapply(device, N, N, 10, card)],
+        svc_f_grad=[check_svc(device, N * N, params, 5, card,
+                              n_ref=2 ** 20, plain_rows=2 ** 20)],
+        svc_decision=[check_svc_mm(device, N * N, params, 5, card, 'D',
+                                   n_ref=2 ** 20, plain_rows=2 ** 20)])
+    log(f'[16 2048^2] phase 16 {time.perf_counter() - t_phase:.1f} s  '
+        f'[{card}]')
+    return dict(launches=launches, checks=checks)
+
+
+#: 17c's bounds against world size 1, relative to the scale: f64 on
+#: glob_sig, the increment (the slab's displacement) and the stresses, max
+#: norm; f32 on glob_sig, the increment in the max norm and the stresses
+#: in the 2-norm.  The f32 field bounds are set from their readings
+#: (PERF.md section 6): the increment 2.46e-4 (the inclusion, 2 ranks of
+#: one card) and 7.08e-5 (4 cards), CG's 1e-6 times the inclusion's 200:1
+#: contrast between two preconditioners; the stresses 1.1e-3 (the
+#: inclusion on 2 and 4 CPU ranks), where two of 65536 elements sit at
+#: the yield threshold and return plastically on one side only (7.7e-2 of
+#: max|sig| there, printed as 'sig' beside the gated 'sig_l2')
+DD_BOUNDS = {'float64': dict(glob_sig=1e-9, du=1e-9, u=1e-9, sig=1e-9),
+             'float32': dict(glob_sig=1e-4, du=1e-3, u=1e-3, sig_l2=5e-3)}
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_strip(device, card, N=1024):
+    """17a: ``strip_load_step`` on phase 5's geometry (N x N, uniaxial y,
+    one 0.25 step of the SVC's eps, float32, two-level Schwarz, CG to the
+    float32 default 1e-6 of the unsharded step) at world size 1, against
+    the port's unsharded ``load_step_split`` from the same state: glob_sig
+    within 5e-3 (``tests/test_sharded_strip.py``'s rule).  Kernels A and B
+    must launch in the strip step."""
+    import torch
+    from pylabfea_tpu_torch import convert
+    from pylabfea_tpu_torch.ops import fe_kernels as fek
+    from pylabfea_tpu_torch.ops import stencil
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    from pylabfea_tpu_torch.parallel import distributed as pd
+    from pylabfea_tpu_torch.parallel import sharded as sh
+    f32 = torch.float32
+    mat, CV, eps = convert.material_from_npz(NPZ, dtype=f32, device=device)
+    md = fek.rect_mesh(N, N, uniax='y', eps_tot=eps, dtype=f32,
+                       device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    _, d1 = fek.load_step_split(md, fek.init_state(md, CV, dtype=f32), mat,
+                                CV, 0.25, n_inner=2)
+    sync(device)
+    t_one = time.perf_counter() - t0
+    sm = sh.StripMesh(N, N, eps_tot=eps, mesh=pd.RankMesh(), dtype=f32,
+                      device=device)
+    el = sm.shard_elements(torch.as_tensor(CV, dtype=f32, device=device)
+                           .expand(N * N, 6, 6))
+    z = torch.zeros((N * N, 6), dtype=f32, device=device)
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    sig, epl, du, d2 = sh.strip_load_step(sm, el, z, z, mat, 0.25, n_inner=2,
+                                          cg_tol=1e-6, schwarz=2)
+    sync(device)
+    t_strip = time.perf_counter() - t0
+    launches = dict(k_apply=stencil.k_apply.launches,
+                    svc_f_grad=sk.svc_f_grad.launches)
+    g1 = d1['glob_sig'].double().cpu().numpy()
+    g2 = d2['glob_sig'].double().cpu().numpy()
+    rel = abs(g2[1] - g1[1]) / abs(g1[1])
+    ok = finite(sig, epl, *du) and rel <= 5e-3 \
+        and min(launches.values()) > 0
+    log(f'[17a strip] {N}x{N} strip_load_step(0.25, n_inner=2, schwarz=2, '
+        f'cg_tol=1e-6) at world size 1, f32: {t_strip:.4f} s (the unsharded '
+        f'load_step_split from the same state {t_one:.4f} s: the '
+        f'decomposition costs {t_strip / t_one:.2f}x); CG iterations of '
+        f'every solve {d2["cg_iters_hist"]}, last res {d2["cg_res"]:.2e} '
+        f'(unsharded cg_iters_hist {d1["cg_iters_hist"]}); glob_sig[1] '
+        f'{g2[1]:.4f} vs '
+        f'{g1[1]:.4f} (rel {rel:.2e}, bound 5e-3); launches {launches} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('strip step at world size 1: non-finite, off the unsharded '
+             'step or kernel A or B not launched')
+    return dict(launches=launches, seconds=t_strip, unsharded=t_one)
+
+
+def phase_slab(device, card, N=64):
+    """17b: ``solve_uniaxial3_slab`` on ``bench.py``'s N^3 box (J2 + linear
+    hardening, uniaxial z to 0.002, float32, two steps, n_inner 1) at world
+    size 1 against ``fe3d.solve_uniaxial3``: the last glob_sig within 1e-4
+    of its scale (``__graft_entry__.py``'s gate); kernel C must launch."""
+    import torch
+    from pylabfea_tpu_torch.ops import fe3d, volume
+    from pylabfea_tpu_torch.parallel import distributed as pd
+    from pylabfea_tpu_torch.parallel import sharded3 as sh3
+    f32 = torch.float32
+    mat, CV = j2_material(f32, device), elastic_cv()
+    md = fe3d.box_mesh(N, N, N, uniax='z', eps_tot=0.002, dtype=f32,
+                       device=device)
+    sync(device)
+    t0 = time.perf_counter()
+    _, h1 = fe3d.solve_uniaxial3(md, mat, CV, nsteps=2, n_inner=1)
+    sync(device)
+    t_one = time.perf_counter() - t0
+    sm = sh3.SlabMesh3(N, N, N, uniax='z', eps_tot=0.002, mesh=pd.RankMesh(),
+                       dtype=f32, device=device)
+    reset_counts()
+    sync(device)
+    t0 = time.perf_counter()
+    sig, epl, u, h2 = sh3.solve_uniaxial3_slab(sm, mat, CV, nsteps=2,
+                                               n_inner=1)
+    sync(device)
+    t_slab = time.perf_counter() - t0
+    n3 = volume.k_apply3.launches
+    g1 = h1[-1][0].double().cpu().numpy()
+    g2 = h2[-1][0].double().cpu().numpy()
+    dev = float(np.abs(g2 - g1).max()) / max(1., float(np.abs(g1).max()))
+    ok = finite(sig, epl, *u) and dev < 1e-4 and n3 > 0
+    log(f'[17b slab] {N}^3 solve_uniaxial3_slab(nsteps=2, n_inner=1) at '
+        f'world size 1, J2 + hardening, f32: {t_slab:.4f} s '
+        f'(fe3d.solve_uniaxial3 {t_one:.4f} s); CG iterations '
+        f'{[h[2] for h in h2]} (unsharded {[h[2] for h in h1]}); '
+        f'glob_sig[2] {g2[2]:.4f} vs {g1[2]:.4f} (max dev {dev:.2e}, bound '
+        f'1e-4); k_apply3 launches {n3} {"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('slab solve at world size 1: non-finite, off solve_uniaxial3 '
+             'or kernel C not launched')
+    return dict(launches=dict(k_apply3=n3), seconds=t_slab, unsharded=t_one)
+
+
+def dd_cases():
+    """17c's cases: the strip at 256^2 (one 0.25 step of the SVC's eps,
+    f32 to CG 1e-6 and f64 to 1e-13), the grouped three-material
+    inclusion strip at 256^2 (f32) and the slab at 32^3 (J2 + hardening,
+    two steps, f32)."""
+    strip = dict(kind='strip_step', NX=256, NY=256, eps=0.002, mats='svc',
+                 load_frac=0.25, n_inner=2)
+    return [dict(strip, dtype='float32', cg_tol=1e-6),
+            dict(strip, dtype='float64', cg_tol=1e-13),
+            dict(kind='strip_step', NX=256, NY=256, LX=4., LY=4.,
+                 mats='inclusion', load_frac=0.25, n_inner=2,
+                 dtype='float32', cg_tol=1e-6),
+            dict(kind='slab', NX=32, NY=32, NZ=32, eps=0.002, mats='j2',
+                 dtype='float32', nsteps=2, n_inner=1)]
+
+
+def phase_dd_ranks(device, card):
+    """17c: the strip and slab cases of ``dd_cases`` on W ranks against
+    world size 1, W = min(4, cards) where there are two cards or more,
+    else 2, placed by ``launch.spawn``'s default: one card a rank under
+    NCCL, or both ranks on the one card under Gloo (NCCL refuses two
+    ranks on one GPU).  Each case within ``DD_BOUNDS`` of world size 1
+    (f64 1e-9; f32 glob_sig 1e-4, ``__graft_entry__.py``'s gate, and the
+    fields at bounds set from their readings), the duplicated columns and
+    planes bitwise equal on both ranks, glob_sig alike on every rank.
+    Every rank's error fails the phase.  Returns the ranks' kernel
+    launches."""
+    import torch
+    from pylabfea_tpu_torch.parallel import distributed as pd
+    from pylabfea_tpu_torch.parallel import launch, runs
+    cases = dd_cases()
+    ncard = torch.cuda.device_count()
+    W = min(4, ncard) if ncard >= 2 else 2
+    devs, backend = launch.placement(W)
+    t0 = time.perf_counter()
+    one = runs.suite(pd.RankMesh(), device, cases)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch.spawn(runs.suite, W, args=(cases,), timeout=600.)
+    t_ranks = time.perf_counter() - t0
+    launches = {}
+    for i, c in enumerate(cases):
+        res = [r[i] for r in ranks]
+        bounds = DD_BOUNDS[c['dtype']]
+        key = 'u' if c['kind'] == 'slab' else 'du'
+        # the increment / displacement blocks with the duplicated layer of
+        # every rank but the last dropped, in strip order
+        glob = np.concatenate([x[key][:, :-1] for x in res[:-1]]
+                              + [res[-1][key]], 1)
+        errs = {'glob_sig': _rel_max(res[0]['glob_sig'], one[i]['glob_sig']),
+                key: _rel_max(glob, one[i][key])}
+        sig = np.concatenate([x['sig'] for x in res])
+        errs['sig'] = _rel_max(sig, one[i]['sig'])
+        if c['dtype'] == 'float32':
+            errs['sig_l2'] = float(np.linalg.norm(sig - one[i]['sig'])
+                                   / np.linalg.norm(one[i]['sig']))
+        dup = all(np.array_equal(res[r][key][:, -1], res[r + 1][key][:, 0])
+                  for r in range(W - 1))
+        same = all(np.array_equal(x['glob_sig'], res[0]['glob_sig'])
+                   for x in res)
+        need = ('k_apply3',) if c['kind'] == 'slab' else (
+            ('k_apply', 'svc_f_grad') if c['mats'] == 'svc'
+            else ('k_apply',))
+        for x in res:
+            for k, n in x['launches'].items():
+                launches[k] = launches.get(k, 0) + n
+        ran = all(x['launches'][k] > 0 for x in res for k in need)
+        gated = {k: v for k, v in errs.items() if k in bounds}
+        ok = all(v <= bounds[k] for k, v in gated.items()) and dup \
+            and same and ran
+        iters = ('cg_iters', 'cg_iters_hist')[c['kind'] == 'strip_step']
+        tag = f'{c["kind"]} {c["NX"]}^{3 if c["kind"] == "slab" else 2} ' \
+            f'{c["mats"]} {c["dtype"]}'
+        log(f'[17c ranks] {tag} on {W} ranks ({backend}): '
+            f'{max(x["seconds"] for x in res):.3f} s (world size 1 '
+            f'{one[i]["seconds"]:.3f} s); CG iterations of every '
+            f'{"solve" if iters == "cg_iters_hist" else "step"} '
+            f'{res[0][iters]} (world size 1 {one[i][iters]}); '
+            f'errors vs world size 1 '
+            f'{ {k: f"{v:.2e}" for k, v in errs.items()} } (bounds '
+            f'{ {k: bounds[k] for k in gated} }); duplicated layers bitwise '
+            f'{dup}; '
+            f'glob_sig alike on every '
+            f'rank {same}; launches of rank 0 {res[0]["launches"]} '
+            f'{"ok" if ok else "FAIL"}  [{card}]')
+        if not ok:
+            fail(f'17c {tag}: the ranks disagree with world size 1, their '
+                 'duplicated layers differ or a kernel was not launched')
+    log(f'[17c ranks] W={W} {backend} on {devs}: the ranks {t_ranks:.1f} s '
+        f'(spawn included), world size 1 {t_one:.1f} s  [{card}]')
+    return dict(W=W, backend=backend, devs=devs, launches=launches)
+
+
+def phase_dd(device, card):
+    """Phase 17: the domain decomposition (17a strip, 17b slab, 17c
+    ranks), then kernel C at the slabs' block shapes against its plain
+    version."""
+    import torch
+    t0 = time.perf_counter()
+    a = phase_strip(device, card)
+    b = phase_slab(device, card)
+    c = phase_dd_ranks(device, card)
+    ec = [check_kapply3(device, (64, 64, 64), torch.float32, 3e-6, 20,
+                        card),
+          check_kapply3(device, (32 // c['W'], 32, 32), torch.float32, 3e-6,
+                        0, card)]
+    log(f'[17 domain decomposition] phase 17 {time.perf_counter() - t0:.1f}'
+        f' s  [{card}]')
+    return dict(strip=a, slab=b, ranks=c, check_slab=ec)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2785,6 +3119,11 @@ def main():
     trained['served_ms'] = (served['checks']['svc_f_grad'][0][1],
                             served['checks']['svc_decision'][0][1])
     bridged = phase_bridge(device, trained, card)
+    t16 = time.perf_counter()
+    row = phase_2048(device, card)
+    dd = phase_dd(device, card)
+    log(f'[16-17] phases 16 and 17 {time.perf_counter() - t16:.1f} s '
+        f'(their budget 150 s)  [{card}]')
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions
@@ -2852,6 +3191,25 @@ def main():
             name, ('B', 'kapply2d.cu', 'stencil_pallas.py:138'))
         kernels.append(entry(f'{name}[bridge]', src, repl,
                              bridged['launches'][name], chk))
+    # the 2048^2 row (phase 16) at its shapes; the domain decomposition
+    # (phase 17): B and A on 17a's strip (its block is phase 3's 1024^2
+    # grid), C on 17b's slab and at 17c's slab block
+    for name, chk in row['checks'].items():
+        letter, src, repl = sources.get(
+            name, ('B', 'kapply2d.cu', 'stencil_pallas.py:138'))
+        kernels.append(entry(f'{name}[2048]', src, repl,
+                             row['launches'][name], chk))
+    kernels += [
+        entry('k_apply[strip]', 'kapply2d.cu', 'stencil_pallas.py:138',
+              dd['strip']['launches']['k_apply'], eb),
+        entry('svc_f_grad[strip]', 'svc_fgrad.cu', 'pallas_kernels.py:231',
+              dd['strip']['launches']['svc_f_grad'], ea),
+        entry('k_apply3[slab]', 'kapply3d.cu', 'volume_pallas.py:175',
+              dd['slab']['launches']['k_apply3'], dd['check_slab'])]
+    top = sorted(CLOCK['phases'].items(), key=lambda kv: -kv[1])
+    log(f'[clock] chip_smoke {time.perf_counter() - CLOCK["start"]:.1f} s '
+        f'(limit 1200 s); by phase, longest first: '
+        + ', '.join(f'{k} {v:.1f}' for k, v in top))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -33,8 +33,6 @@ from pylabfea_tpu_torch.ops import svc_kernels as sk
 #: scale on the cutting-plane projection's exit tolerance (1.0 = the
 #: reference's yf_tolerance band), as in the JAX module
 PROJ_TOL_SCALE = 1.0
-#: substeps of a subdividing lane in the faithful ``response``
-MAXIT = 50
 
 
 @dataclass
@@ -371,16 +369,17 @@ def _root_features(m: DeviceMaterial, su, epl):
 
 
 def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None,
-               root=sk.svc_yf_root):
+               maxmarch=400, root=sk.svc_yf_root):
     """Distance of stresses (Voigt (N, 6), or principal (N, 3) for a
     cylindrical material) to the SVC yield locus along their own loading
     direction (the JAX ``ml_yf_dist``): geometric bracket marching (x0 *=
     0.98 down, x1 *= 1.02 up) then Brent, per lane in ``root`` (kernel G
     on the card, one launch and no host read; its plain version on the
-    CPU, which ``root=sk.svc_yf_root_plain`` also runs on the card); lanes
-    with a vanishing stress (``seq < 0.01``), no root or a root beyond 4
-    sflow take the fallback ``seq - 0.85 sflow``.  The plastic-strain and
-    texture features stay fixed while the stress scales."""
+    CPU, which ``root=sk.svc_yf_root_plain`` also runs on the card), each
+    march at most ``maxmarch`` steps; lanes with a vanishing stress
+    (``seq < 0.01``), no root or a root beyond 4 sflow take the fallback
+    ``seq - 0.85 sflow``.  The plastic-strain and texture features stay
+    fixed while the stress scales."""
     _seq = jt.seq_j2_voigt if sig.shape[-1] == 6 else jt.seq_j2_princ
     seq = _seq(sig)
     kh = m.khard if khard is None else khard
@@ -389,7 +388,7 @@ def ml_yf_dist(m: DeviceMaterial, sig, peeq, epl=None, khard=None,
     su = sig / torch.where(small, 1., seq)[:, None]
     start = torch.where(su[:, 0] * su[:, 1] < -1.e-5, 0.5 * sflow, sflow)
     xs, ok = root(su, start, 5. * sflow, m.sv, m.dc, m.gamma, m.rho,
-                  _root_features(m, su, epl), xtol=1.e-5)
+                  _root_features(m, su, epl), xtol=1.e-5, maxmarch=maxmarch)
     good = ok & (xs < 4. * sflow) & ~small
     return torch.where(good, seq - xs * _seq(su), seq - 0.85 * sflow)
 
@@ -740,16 +739,16 @@ def _min_norm_correction(d, s2, Ginv, dsig_x):
     return Ct
 
 
-def response(m: DeviceMaterial, state, deps, CV):
+def response(m: DeviceMaterial, state, deps, CV, maxit=50):
     """Reference-faithful batched return map (the JAX ``response``, the
     host ``Material.response_batch`` control flow with masked lanes):
     elastic predictor on the yield-locus distance, step split at the
-    locus, one trial step deciding subdivision into ``MAXIT`` substeps,
+    locus, one trial step deciding subdivision into ``maxit`` substeps,
     then the substeps with excess-stress correction and the min-norm
     tangent correction.
 
     state = (sig (N, 6), epl (N, 6)); deps (N, 6); CV (6, 6) tensor.
-    JAX runs all ``MAXIT`` substeps with the finished lanes frozen; this
+    JAX runs all ``maxit`` substeps with the finished lanes frozen; this
     runs the largest substep count of any lane (one host read), which
     gives the same result.  Returns (fy, sig, depl, tangent (N, 6, 6))."""
     sig0, epl0 = state
@@ -785,8 +784,8 @@ def response(m: DeviceMaterial, state, deps, CV):
     fy_t = yf_dist(m, sig_t, jt.eps_eq(epl0 + ddepl_t), epl0 + ddepl_t,
                    kh_t)
     sub = fy_t > toler
-    deps_r = torch.where(sub[:, None], deps_r / MAXIT, deps_r)
-    nsteps = torch.where(sub, MAXIT, 1)
+    deps_r = torch.where(sub[:, None], deps_r / maxit, deps_r)
+    nsteps = torch.where(sub, maxit, 1)
     w_step = (st_scal / nsteps)[:, None, None]
     SV = _compliance(CV)
     d, s2, Ginv = _min_norm_inverse(deps_r)
@@ -826,7 +825,8 @@ def response(m: DeviceMaterial, state, deps, CV):
             torch.where(elastic[:, None, None], CV[None], grad))
 
 
-def response_chunked(m: DeviceMaterial, state, deps, CV, chunk=None):
+def response_chunked(m: DeviceMaterial, state, deps, CV, maxit=50,
+                     chunk=None):
     """``response`` over chunks of ``chunk`` points (``_chunked``): bounds
     the live per-point temporaries of very large batches.  On the card the
     kernels write no (N, nsv) matrix, so the default keeps 2^20 points,
@@ -834,5 +834,5 @@ def response_chunked(m: DeviceMaterial, state, deps, CV, chunk=None):
     JAX package's ``JAX_FAITHFUL_CHUNK``, a part of their result."""
     if chunk is None:
         chunk = JAX_FAITHFUL_CHUNK if m.is_svc and _has_wh(m) else 1 << 20
-    return _chunked(m, lambda st, d: response(m, st, d, CV), state, deps,
-                    chunk)
+    return _chunked(m, lambda st, d: response(m, st, d, CV, maxit), state,
+                    deps, chunk)

@@ -538,12 +538,6 @@ def respond_grouped(md, mat, CV, sig, epl, deps, fast=True, maxiter=12,
 # -----------------------------------------------------------------
 # load step
 # -----------------------------------------------------------------
-#: most extra rounds of a gated step (and of its faithful tail)
-MAX_INNER = 15
-#: float32 tangent-stall threshold of the gate, relative to |CV|_F
-GATE_DST_RTOL = 1e-4
-
-
 @dataclass
 class SolverState:
     u: torch.Tensor          # (2, nnX, nnY) | (Ndof,) flat
@@ -693,8 +687,9 @@ def _gate_scale(md: MeshData, mat):
 
 def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
                     n_inner=2, cg_tol=None, cg_maxiter=100, fast=True,
-                    nsub=4, du0=None, kes0=None, dst0=None, gate=False,
-                    n_refine=0, commit_f64=False, commit_faithful=False):
+                    nsub=4, du0=None, gate=False, max_inner=15, kes0=None,
+                    dst0=None, n_refine=0, gate_dst_rtol=1e-4,
+                    commit_f64=False, commit_faithful=False):
     """One load step: rounds of (MG-CG solve with the current tangent
     field, return map, tangent update), ``n_inner + 1`` of them or, with
     ``gate``, until the convergence gate fires (the JAX
@@ -711,11 +706,12 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     keeps it unconditionally.
 
     ``gate=True``: iterate (at least ``n_inner + 1`` rounds, at most
-    ``MAX_INNER + 1``) until the normalized yield excess is within
+    ``max_inner + 1``) until the normalized yield excess is within
     tolerance and the tangent stopped changing: ``dst <= 1e-3`` in
     float64; in float32, where tangents oscillate at the rounding floor,
-    ``dst`` against ``GATE_DST_RTOL * |CV|_F`` with a deep hold (a tenth
-    of it) or two holds in a row.  ``n_refine``: that many
+    ``dst`` against ``gate_dst_rtol * |CV|_F`` with a deep hold (a tenth
+    of it) or two holds in a row; ``gate_dst_rtol=0`` takes the absolute
+    test in float32 too.  ``n_refine``: that many
     mixed-precision refinement passes after every solve (``refine_du``).  ``commit_f64`` (float32 states): the committed
     stress and plastic strain are the last response recomputed in float64
     from the entering state.  ``commit_faithful``: once the fast phase
@@ -729,7 +725,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     elstiff = state.elstiff
     f64 = elstiff.dtype == torch.float64
     tol = cg_tol if cg_tol is not None else (1.e-11 if f64 else 1.e-6)
-    count = (MAX_INNER if gate else n_inner) + 1
+    count = (max_inner if gate else n_inner) + 1
     faithful_tail = bool(commit_faithful and fast)
     tail = False
     if gate or faithful_tail:
@@ -737,16 +733,17 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         # |CV|_F in float32 (its tangents oscillate at the rounding floor
         # far above 1e-3)
         CVs = CV if isinstance(mat, (tuple, list)) else (CV,)
-        dst_exit = 1.e-3 if f64 else max(1.e-3, GATE_DST_RTOL * max(
+        dst_exit = 1.e-3 if f64 else max(1.e-3, gate_dst_rtol * max(
             float(torch.linalg.norm(torch.as_tensor(c, dtype=md.dtype)))
             for c in CVs))
+    strict_abs = f64 or gate_dst_rtol == 0.
     held = False
     du, kes = du0, kes0
     dst = None if dst0 is None else float(dst0)
     cg_hist = []
     converged = False
     i = 0
-    total_count = count + (MAX_INNER if faithful_tail else 0)
+    total_count = count + (max_inner if faithful_tail else 0)
     while i < total_count:
         if md.grid is None:
             # flat meshes: Jacobi-CG warm-started from the last increment
@@ -778,7 +775,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         dst = float(dst_t)
         if tail or (gate and i >= min(n_inner, count - 1)):
             fmax = float(torch.max(fy / _gate_scale(md, mat)))
-            dst_ok = (dst <= dst_exit) if f64 else (
+            dst_ok = (dst <= dst_exit) if strict_abs else (
                 dst <= 0.1 * dst_exit or (held and dst <= dst_exit))
             if fmax <= yf_tolerance * 1.0001 and dst_ok:
                 if faithful_tail and not tail:
@@ -801,7 +798,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         if fmax > yf_tolerance * 1.0001:
             warnings.warn(
                 f'load_step_split: no convergence of the plasticity '
-                f'algorithm within max_inner={MAX_INNER} iterations '
+                f'algorithm within max_inner={max_inner} iterations '
                 f'(normalized yield excess {fmax:.3g} > tolerance '
                 f'{yf_tolerance:.1e}); reduce the load increment or '
                 f'increase nsub', stacklevel=2)
@@ -823,13 +820,19 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
 
 def solve_uniaxial(md: MeshData, mat, CV, nsteps=20, n_inner=3,
                    dtype=DTYPE_DEVICE, cg_tol=None, cg_maxiter=2000,
-                   fast=True, nsub=4, gate=False, n_refine=0,
+                   fast=True, nsub=4, split=True, gate=False, n_refine=0,
                    commit_faithful=False):
     """Apply the boundary displacement in ``nsteps`` equal increments,
     threading ``du``, the hierarchy and the tangent change from step to
     step; ``gate``, ``n_refine`` and ``commit_faithful`` as in
-    ``load_step_split``.  Returns (final state, [(glob_sig, glob_eps,
+    ``load_step_split``.  ``split=False`` selects the JAX package's
+    monolithic ``load_step``, which exists only to suit XLA's compiler and
+    is not ported.  Returns (final state, [(glob_sig, glob_eps,
     glob_epl)])."""
+    if not split:
+        raise NotImplementedError(
+            'solve_uniaxial(split=False): the monolithic load_step is not '
+            'ported; load_step_split computes the same step')
     state = init_state(md, CV, dtype=dtype)
     hist = []
     du0 = kes0 = dst0 = None

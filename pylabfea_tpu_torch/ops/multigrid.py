@@ -4,7 +4,8 @@
 Coarse operators are the exact Galerkin products P^T K P of the bilinear
 prolongation, assembled as coarse element-stiffness planes; restriction
 and prolongation are the separable full-weighting matrices (``restrict_mm``
-/ ``prolong_mm``); smoothing is damped Jacobi; the coarsest level (at most
+/ ``prolong_mm``); smoothing is damped Jacobi or, with ``SMOOTHER =
+'chebyshev'``, a Chebyshev polynomial in D^-1 K; the coarsest level (at most
 ``COARSE_DENSE_MAX`` dofs) is solved exactly with a dense pseudo-inverse.
 Every stiffness apply goes through ``fe_kernels.k_apply_t`` (kernel B on
 the card).  The V-cycle is symmetric, so it preconditions CG.
@@ -21,6 +22,9 @@ from pylabfea_tpu_torch.ops import stencil as st
 #: exact dense bottom solve when the coarsest level has at most this many
 #: dofs (min_size=8 -> 162)
 COARSE_DENSE_MAX = 700
+#: smoother selection: 'jacobi' (damped, omega=0.7) or 'chebyshev'
+#: (degree-nu polynomial on D^-1 K, eigenvalue interval [lmax/4, lmax])
+SMOOTHER = 'jacobi'
 
 
 def coarsen_mesh(md: fek.MeshData):
@@ -129,13 +133,15 @@ def prolong_mm(coarse, W):
 @dataclass
 class MGLevel:
     """One level: mesh, element stiffness planes, Jacobi diagonal and BC
-    mask (plane tuples), restriction pair of its node grid; the coarsest
-    level may carry the dense inverse of its operator."""
+    mask (plane tuples), restriction pair of its node grid, the estimate
+    of lambda_max(D^-1 K) of the Chebyshev smoother (None under Jacobi);
+    the coarsest level may carry the dense inverse of its operator."""
     md: fek.MeshData
     Ke: torch.Tensor
     diag: tuple
     fixed: tuple
     W: tuple
+    lmax: torch.Tensor = None
     kc_inv: torch.Tensor = None
 
 
@@ -181,7 +187,24 @@ def _make_level(cur_md, Ke):
     fixT = fek._split(cur_md.fixed)
     NX, NY = cur_md.grid[:2]
     W = None if NX % 2 or NY % 2 else _transfer_mats(cur_md)
-    return MGLevel(cur_md, Ke, fek.k_diag_t(cur_md, Ke, fixT), fixT, W)
+    diag = fek.k_diag_t(cur_md, Ke, fixT)
+    lmax = None
+    if SMOOTHER == 'chebyshev':
+        # 10 power iterations for lambda_max(D^-1 K) from the JAX
+        # package's deterministic start
+        i = torch.arange((NX + 1) * (NY + 1), dtype=Ke.dtype,
+                         device=Ke.device).reshape(NX + 1, NY + 1)
+        v = tuple(torch.sin(i * (0.37 + 0.11 * c)) + 0.01 for c in range(2))
+        minv = tuple(1. / d for d in diag)
+        for _ in range(10):
+            w = fek.k_apply_t(cur_md, Ke, v, fixT)
+            w = tuple(m * x for m, x in zip(minv, w))
+            nrm = torch.clamp(fek._norm(w), min=1e-30)
+            v = tuple(x / nrm for x in w)
+        Av = fek.k_apply_t(cur_md, Ke, v, fixT)
+        Av = tuple(m * x for m, x in zip(minv, Av))
+        lmax = fek._dot(v, Av) / torch.clamp(fek._dot(v, v), min=1e-30)
+    return MGLevel(cur_md, Ke, diag, fixT, W, lmax)
 
 
 def build_hierarchy(md: fek.MeshData, elstiff, min_size=8, attach_inv=True):
@@ -227,8 +250,37 @@ def levels_from_kes(md: fek.MeshData, kes):
 
 
 def _smooth(level: MGLevel, x, b, nu, omega=0.7, zero_start=False):
-    """``nu`` damped-Jacobi sweeps on K x = b.  ``zero_start=True`` means
-    x == 0, so the first sweep is x = omega D^-1 b without an apply."""
+    """``nu`` smoothing sweeps on K x = b: damped Jacobi, or with
+    ``SMOOTHER = 'chebyshev'`` a degree-``nu`` Chebyshev polynomial in
+    D^-1 K on [1.1 lmax / 4, 1.1 lmax] (the 3-D ``fe3d._smooth3``).
+    ``zero_start=True`` means x == 0 (``x`` may be None), so the first
+    residual is b (Chebyshev) or the first sweep x = omega D^-1 b
+    (Jacobi), without an apply."""
+    if SMOOTHER == 'chebyshev' and level.lmax is not None:
+        minv = tuple(1. / d for d in level.diag)
+        lmax = 1.1 * level.lmax
+        lmin = lmax / 4.
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma = theta / delta
+        if zero_start:
+            r = b
+        else:
+            Kx = fek.k_apply_t(level.md, level.Ke, x, level.fixed)
+            r = tuple(bi - ki for bi, ki in zip(b, Kx))
+        d = tuple(m * ri / theta for m, ri in zip(minv, r))
+        rho = 1. / sigma
+        for _ in range(max(nu, 1)):
+            x = d if x is None else tuple(xi + di for xi, di in zip(x, d))
+            Kd = fek.k_apply_t(level.md, level.Ke, d, level.fixed)
+            # k_apply_t returns d on fixed dofs: keep the residual 0 there
+            r = tuple(torch.where(f, 0., ri - ki)
+                      for f, ri, ki in zip(level.fixed, r, Kd))
+            rho_new = 1. / (2. * sigma - rho)
+            d = tuple(rho_new * rho * di + 2. * rho_new / delta * m * ri
+                      for di, m, ri in zip(d, minv, r))
+            rho = rho_new
+        return x
     minv = tuple(omega / d for d in level.diag)
     if zero_start:
         x = tuple(m * bi for m, bi in zip(minv, b))

@@ -112,17 +112,19 @@ def _check(Cp, u0, u1, u2):
                             f'Cp is {Cp.dtype} on {Cp.device}')
         if not t.is_contiguous():
             raise ValueError(f'k_apply3: {name} must be contiguous')
-        if name != 'Cp' and tuple(t.shape) != nn:
-            raise ValueError(f'k_apply3: {name} must be {nn}, got '
-                             f'{tuple(t.shape)}')
+        if name != 'Cp' and (tuple(t.shape[-3:]) != nn
+                             or t.shape != u0.shape):
+            raise ValueError(f'k_apply3: {name} must be (..., *{nn}) like '
+                             f'u0, got {tuple(t.shape)}')
 
 
 def k_apply3(Cp, u0, u1, u2, lx, ly, lz):
     """K u on a structured hex8 grid (callers mask fixed dofs).
 
-    Cp (36, NX, NY, NZ) tangent volumes, u0/u1/u2 (NX+1, NY+1, NZ+1)
-    displacement volumes, float32 or float64; lx, ly, lz the element edge
-    lengths.  Returns (o0, o1, o2)."""
+    Cp (36, NX, NY, NZ) tangent volumes, u0/u1/u2 (..., NX+1, NY+1, NZ+1)
+    displacement volumes, float32 or float64, with the same leading batch
+    dimensions (one launch a batch item on the card); lx, ly, lz the
+    element edge lengths.  Returns (o0, o1, o2)."""
     if Cp.device.type not in ('cpu', 'cuda'):
         raise TypeError(f'k_apply3: device {Cp.device} not supported')
     # checked on the CPU too, so the CPU tests hold callers to the layout
@@ -135,14 +137,17 @@ def k_apply3(Cp, u0, u1, u2, lx, ly, lz):
     lib = build.load().lib
     fn = lib.pylabfea_kapply3d_f32 if Cp.dtype == torch.float32 \
         else lib.pylabfea_kapply3d_f64
+    nn = u0.shape[-3:]
+    items = list(zip(*(t.reshape((-1,) + nn) for t in (u0, u1, u2) + out)))
     with torch.cuda.device(Cp.device):
         stream = torch.cuda.current_stream(Cp.device).cuda_stream
-        # x_chunk 0: the kernel picks the node layers a block marches over
-        err = fn(Cp.data_ptr(), u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
-                 *(o.data_ptr() for o in out), NX, NY, NZ, float(lx),
-                 float(ly), float(lz), 0, stream)
-    build.check(err, 'k_apply3')
-    k_apply3.launches += 1
+        for v in items:
+            # x_chunk 0: the kernel picks the node layers a block marches
+            # over
+            err = fn(Cp.data_ptr(), *(t.data_ptr() for t in v), NX, NY, NZ,
+                     float(lx), float(ly), float(lz), 0, stream)
+            build.check(err, 'k_apply3')
+            k_apply3.launches += 1
     return out
 
 

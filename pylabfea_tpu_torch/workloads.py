@@ -46,6 +46,12 @@ def inclusion_case(N, dtype, device):
     0.27 inclusion over LX = LY = 4."""
     md = fek.rect_mesh(N, N, LX=4., LY=4., bc=INCL_BC,
                        mat_map=inclusion_map(N), dtype=dtype, device=device)
+    return (md,) + inclusion_materials(dtype, device)
+
+
+def inclusion_materials(dtype, device):
+    """The three materials of ``inclusion_case`` and their elastic
+    stiffnesses: (tuple of materials, tuple of CVs)."""
     hill = convert.material_from_params(
         dict(hill=[0.7, 1., 1.4, 1., 1., 1.], sy=SY, khard=0., drucker=0.),
         is_svc=False, dtype=dtype, device=device)
@@ -54,7 +60,7 @@ def inclusion_case(N, dtype, device):
         sdim3=True, dtype=dtype, device=device)
     mats = (hill, j2, convert.elastic_material(dtype, device))
     cv = convert.elastic_cv(200.e3, 0.3)
-    return md, mats, (cv, cv, convert.elastic_cv(1.e3, 0.27))
+    return mats, (cv, cv, convert.elastic_cv(1.e3, 0.27))
 
 
 def laminate_case(NX, NY, dtype, device):

@@ -818,3 +818,41 @@ def test_reduce_svc_on_the_card_matches_the_cpu(cuda):
                                 torch.as_tensor(rh.dual_coef), p.intercept,
                                 p.gamma, x)
     assert float((fc - fh).abs().max()) <= 1e-6 * float(fh.abs().max())
+
+
+def test_k_apply3_batch_launches_each_item(cuda):
+    """Kernel C on a batch of displacement volumes (the slab coarse
+    space's basis functions): one launch an item, each item the plain
+    version's."""
+    Cp, u = chip_smoke.kapply3_inputs((2, 9, 5), torch.float64, cuda)
+    ub = tuple(torch.stack([x, 2. * x, -x]) for x in u)
+    n0 = volume.k_apply3.launches
+    out = volume.k_apply3(Cp, *ub, 0.5, 0.3, 0.7)
+    torch.cuda.synchronize()
+    assert volume.k_apply3.launches == n0 + 3
+    ref = volume.k_apply3_plain(Cp, *ub, 0.5, 0.3, 0.7)
+    for o, r in zip(out, ref):
+        assert float((o - r).abs().max()) <= 1e-12 * float(r.abs().max())
+
+
+@pytest.mark.parametrize('case', [
+    dict(kind='strip_step', NX=32, NY=32, eps=0.002, mats='svc',
+         load_frac=0.5, n_inner=2, dtype='float64', cg_tol=1e-13),
+    dict(kind='strip_step', NX=32, NY=32, LX=4., LY=4., mats='inclusion',
+         load_frac=0.25, n_inner=2, dtype='float64', cg_tol=1e-13),
+    dict(kind='slab', NX=8, NY=8, NZ=8, eps=0.002, mats='j2', nsteps=2,
+         n_inner=1, dtype='float64')])
+def test_decomposition_on_the_card_matches_the_cpu(cuda, case):
+    """The strip step and the slab solve at world size 1 on the card
+    (kernels B, A and C) against the CPU's plain versions, float64 within
+    1e-9; the card's run launches its kernels."""
+    from pylabfea_tpu_torch.parallel import distributed, runs
+    one = distributed.RankMesh()
+    card, = runs.suite(one, cuda, [case])
+    cpu, = runs.suite(one, torch.device('cpu'), [case])
+    key = 'u' if case['kind'] == 'slab' else 'du'
+    for k in ('glob_sig', 'sig', key):
+        assert np.abs(card[k] - cpu[k]).max() \
+            <= 1e-9 * np.abs(cpu[k]).max(), k
+    need = 'k_apply3' if case['kind'] == 'slab' else 'k_apply'
+    assert card['launches'][need] > 0 and cpu['launches'][need] == 0

@@ -276,3 +276,97 @@ def test_build_key_tracks_sources_and_flags(tmp_path, monkeypatch):
     again = {s.stem: build._key([s]) for s in copies}
     assert {k for k in again if again[k] != after[k]} \
         == set(stems) - {'kapply2d', 'kapply3d'}
+
+
+_PARALLEL_PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pylabfea_tpu_torch import convert
+from pylabfea_tpu_torch.ops import stencil, volume
+from pylabfea_tpu_torch.parallel import (distributed, launch, runs, sharded,
+                                         sharded3)
+one = distributed.RankMesh()
+cpu = torch.device('cpu')
+res = runs.suite(one, cpu, [
+    dict(kind='strip_step', NX=8, NY=8, eps=0.002, dtype='float64',
+         mats='svc', load_frac=0.5, n_inner=1),
+    dict(kind='slab', NX=2, NY=2, NZ=2, eps=0.002, dtype='float64',
+         mats='j2', nsteps=1, n_inner=1)])
+assert stencil.k_apply.launches == volume.k_apply3.launches == 0
+bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+             or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
+assert not bad, bad
+print('clean', res[0]['glob_sig'][1], res[1]['glob_sig'][-1][2])
+"""
+
+
+def test_parallel_runs_on_the_cpu_without_jax_or_launch():
+    """The domain decomposition at world size 1 on CPU tensors: the plain
+    versions, no kernel launch, no JAX module imported."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', _PARALLEL_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith('clean')
+
+
+def test_parallel_meshes_default_to_the_card(monkeypatch):
+    """Without ``device`` the strip and slab meshes and a multi-process
+    ``init_multihost`` ask for the card; where none is visible they raise
+    instead of building on the CPU."""
+    from pylabfea_tpu_torch.parallel import distributed, sharded, sharded3
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    one = distributed.RankMesh()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        sharded.StripMesh(4, 4, mesh=one)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        sharded3.SlabMesh3(2, 2, 2, mesh=one)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        distributed.init_multihost('127.0.0.1:1', 2, 0)
+    assert sharded.StripMesh(4, 4, mesh=one,
+                             device='cpu').md_loc.B.device.type \
+        == sharded3.SlabMesh3(2, 2, 2, mesh=one,
+                              device='cpu').md_loc.B.device.type == 'cpu'
+
+
+def test_launcher_defaults_to_the_card(monkeypatch):
+    """``launch.spawn`` without devices places its ranks on the card (one
+    card a rank under NCCL where as many are visible, else every rank on
+    card 0 under Gloo) and, where no card is visible, raises before it
+    starts a process; the CPU runs only when the caller lists it."""
+    from pylabfea_tpu_torch.parallel import launch, runs
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        launch.spawn(runs.suite, 2, args=([],))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        launch.placement(2)
+    assert launch.placement(2, ['cpu'] * 2) == (['cpu', 'cpu'], 'gloo')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 4)
+    assert launch.placement(4) == (
+        ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3'], 'nccl')
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    assert launch.placement(2) == (['cuda:0', 'cuda:0'], 'gloo')
+
+
+def test_parallel_applies_raise_instead_of_falling_back():
+    """The strip and slab applies hand a tensor that is neither on the CPU
+    nor on the card to their kernel's wrapper, which raises: no quiet
+    plain version."""
+    from pylabfea_tpu_torch.parallel import distributed, sharded, sharded3
+    one = distributed.RankMesh()
+    meta = dict(device='meta', dtype=torch.float32)
+    sm = sharded.StripMesh(4, 3, mesh=one, device='cpu')
+    fixed = tuple(torch.zeros(5, 4, dtype=torch.bool, device='meta')
+                  for _ in range(2))
+    with pytest.raises(TypeError):
+        sharded.apply_planes(sm, torch.empty(8, 8, 4, 3, **meta),
+                             tuple(torch.empty(5, 4, **meta)
+                                   for _ in range(2)), fixed)
+    sl = sharded3.SlabMesh3(2, 2, 2, mesh=one, device='cpu')
+    with pytest.raises(TypeError):
+        fe3d._k_apply3_raw(sl.md_loc, torch.empty(36, 2, 2, 2, **meta),
+                           tuple(torch.empty(3, 3, 3, **meta)
+                                 for _ in range(3)))
