@@ -20,6 +20,12 @@ implicit formulas, so ``torch.autograd``, ``forward_ad`` and
 increments (Voigt, engineering shear) and the stresses after each step.
 Every function follows the device of its tensor inputs; numpy inputs go
 to the card unless ``device`` names another device.
+
+The fit shards over paths (``fit_plasticity(ranks=...)``): each rank holds
+its own paths, and what is global is reduced over the ranks (the seed's
+statistics on the gathered paths, the strain scale, the stress scale, the
+weights' mean, the cost and the normal equations J'J, J'r), so every rank
+takes the same Levenberg-Marquardt steps to the same parameters.
 """
 import random
 import time
@@ -357,25 +363,31 @@ def ravel_theta(theta):
     return x, unravel
 
 
-def levenberg_marquardt(resid, jac, x, steps, tries):
+def _identity(t):
+    return t
+
+
+def levenberg_marquardt(resid, jac, x, steps, tries, reduce=_identity):
     """Levenberg-Marquardt on r(x): damping from 1e-3, x0.3 on a
     descending step, x4 on a failed try (``tries`` a step); stops at a
-    cost below 1e-24 or a damping above 1e18.  Returns (x, cost history,
-    seconds of each step)."""
+    cost below 1e-24 or a damping above 1e18.  ``reduce`` sums the cost
+    and the normal equations over the ranks of a sharded residual
+    (``RankMesh.sum``).  Returns (x, cost history, seconds of each
+    step)."""
     r = resid(x)
-    cost = float(r @ r)
+    cost = float(reduce(r @ r))
     hist, secs = [cost], []
     lam = 1e-3
     for _ in range(steps):
         t0 = time.perf_counter()
         J = jac(x)
-        JTJ, JTr = J.T @ J, J.T @ r
+        JTJ, JTr = reduce(J.T @ J), reduce(J.T @ r)
         for _ in range(tries):
             A = JTJ + lam * torch.diag(torch.clamp(torch.diagonal(JTJ),
                                                    min=1e-12))
             dx = torch.linalg.solve(A, -JTr)
             r_new = resid(x + dx)
-            c_new = float(r_new @ r_new)
+            c_new = float(reduce(r_new @ r_new))
             if c_new < cost:
                 x, r, cost = x + dx, r_new, c_new
                 lam = max(lam * 0.3, 1e-14)
@@ -405,7 +417,7 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
                    maxiter=40, nsub=1, weights=None, gauge='uniax_x',
                    hardening='linear', deviatoric=False,
                    fit_drucker=False, fit_CV=False, integrator='unrolled',
-                   device=None):
+                   device=None, ranks=None):
     """Identify {sy, hill (6), khard} (and, as asked, Voce's voce_r and
     voce_b, the Drucker coefficient, the elastic CV) from measured stress
     paths (the JAX ``fit_plasticity``): Levenberg-Marquardt on the stacked
@@ -421,6 +433,11 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
     hydrostatic drift (the unrolled derivative expands near the Drucker
     cone apex, which ``integrator='implicit'`` avoids).
 
+    ``ranks`` (a ``parallel.distributed.RankMesh``) shards the fit over
+    paths: ``deps_paths``, ``sig_paths`` (and ``weights``) are this rank's
+    paths (at least one), every rank returns the same parameters, and
+    info['sim'] holds the rank's own paths.
+
     Returns (params dict with 'sy'/'hill'/'khard' [+'voce_r'/'voce_b',
     'drucker', 'CV'], info dict with the cost history 'loss', the
     simulated paths 'sim', 'param_std' and the seconds of each LM step
@@ -429,10 +446,18 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
     dt, dev = deps_paths.dtype, deps_paths.device
     sig_paths = _placed(sig_paths, dt, dev).to(dev)
     CV = _placed(CV, dt, dev).to(dev)
+    if ranks is None or ranks.size == 1:
+        ranks = None
+        rsum, rmax = _identity, _identity
+    else:
+        rsum, rmax = ranks.sum, ranks.max
     if init is None:
-        init = estimate_init(deps_paths, sig_paths, hardening, fit_drucker)
+        init = estimate_init(_gather_paths(ranks, deps_paths),
+                             _gather_paths(ranks, sig_paths), hardening,
+                             fit_drucker)
     eps_tot = torch.cumsum(deps_paths, dim=1)
-    peeq_ref = float(torch.max(jt.eps_eq(eps_tot.reshape(-1, 6)))) or 1.
+    peeq_ref = float(rmax(torch.max(jt.eps_eq(eps_tot.reshape(-1, 6))))) \
+        or 1.
     dsy0 = max(float(init['khard']) * peeq_ref, 1e-6)
 
     def ten(v):
@@ -452,12 +477,12 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
         theta['drucker'] = ten(float(init.get('drucker', 0.)))
     if fit_CV:
         theta['cv_raw'] = ten(_cv_raw_of(CV))
-    scale = torch.clamp(torch.sqrt(torch.mean(sig_paths ** 2)), min=1e-12)
+    scale = torch.clamp(torch.sqrt(_mean(ranks, sig_paths ** 2)), min=1e-12)
     if weights is None:
         w = torch.ones((), dtype=dt, device=dev)
     else:
         w = ten(weights)
-        w = (w / torch.mean(w))[:, None, None]
+        w = (w / _mean(ranks, w))[:, None, None]
     x0, unravel = ravel_theta(theta)
 
     def _dev(s):
@@ -476,7 +501,7 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
     def jac(x):
         return dual.jacfwd(resid, x)[1]
 
-    x, hist, secs = levenberg_marquardt(resid, jac, x0, steps, 16)
+    x, hist, secs = levenberg_marquardt(resid, jac, x0, steps, 16, rsum)
     theta = unravel(x)
     params = {'sy': float(torch.exp(theta['log_sy'])),
               'hill': _np(torch.exp(theta['log_hill'])),
@@ -502,25 +527,55 @@ def fit_plasticity(deps_paths, sig_paths, CV, init=None, steps=80,
         sim = simulate_paths(theta, CV, deps_paths, maxiter, nsub, peeq_ref,
                              integrator)
     info = {'loss': hist, 'sim': _np(sim), 'step_s': secs,
-            'param_std': _param_std(jac, x, hist[-1], theta, peeq_ref)}
+            'param_std': _param_std(jac, x, hist[-1], theta, peeq_ref,
+                                    rsum)}
     return params, info
+
+
+def _mean(ranks, t):
+    """The mean of ``t`` over every rank's entries (a 0-d tensor)."""
+    if ranks is None:
+        return torch.mean(t)
+    tot = ranks.sum(torch.stack([torch.sum(t), t.new_tensor(t.numel())]))
+    return tot[0] / tot[1]
+
+
+def _gather_paths(ranks, t):
+    """Every rank's paths (npaths_r, nsteps, 6) in position order (the
+    paths themselves where ``ranks`` is None): counts, then the paths
+    padded to the largest count, exchanged."""
+    if ranks is None:
+        return t
+    counts = ranks.exchange(torch.tensor([t.shape[0]], device=t.device))
+    counts = [int(c) for c in counts.reshape(-1)]
+    pad = t.new_zeros((max(counts),) + tuple(t.shape[1:]))
+    pad[:t.shape[0]] = t
+    allp = ranks.exchange(pad)
+    return torch.cat([allp[p, :n] for p, n in enumerate(counts)])
 
 
 def _sigmoid(x):
     return 1. / (1. + np.exp(-x))
 
 
-def _param_std(jac, x, cost, theta, peeq_ref):
+def _param_std(jac, x, cost, theta, peeq_ref, reduce=_identity):
     """Gauss-Newton standard errors of the natural parameters at the
     optimum: cov = s^2 pinv(J'J) with s^2 = cost / (m - n), mapped through
     each transform by the delta method, in the raw gauge (the gauge ray
     is a null direction of J'J, which the pseudo-inverse drops).  None at
-    an exact-interpolation floor."""
-    J = _np(jac(x))
+    an exact-interpolation floor.  ``reduce`` sums J'J and the row count
+    m over the ranks of a sharded fit."""
+    Jt = jac(x)
+    J = _np(Jt)
+    JTJ = J.T @ J
     m, n = J.shape
+    if reduce is not _identity:
+        JTJ = _np(reduce(torch.as_tensor(JTJ, device=Jt.device)))
+        m = int(reduce(torch.tensor(float(m), dtype=torch.float64,
+                                    device=Jt.device)))
     if m <= n or cost < 1e-22:
         return None
-    cov = np.linalg.pinv(J.T @ J, rcond=1e-10) * (cost / (m - n))
+    cov = np.linalg.pinv(JTJ, rcond=1e-10) * (cost / (m - n))
     if not np.all(np.isfinite(cov)):
         return None
     sd = np.sqrt(np.maximum(np.diag(cov), 0.))

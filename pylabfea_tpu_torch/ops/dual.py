@@ -168,6 +168,8 @@ def _td(d, ndim):
 def _lift(x, ndim):
     """Tangent of ``x`` with its value dims right-aligned to ``ndim``."""
     t = x.t
+    if x.v.ndim == ndim:
+        return t
     return t.reshape(t.shape[0], *([1] * (ndim - x.v.ndim)), *x.v.shape)
 
 
@@ -176,6 +178,8 @@ def _tan(x, out):
     for a constant)."""
     if not isinstance(x, Dual):
         return None
+    if x.v.shape == out.shape:
+        return x.t
     t = _lift(x, out.ndim)
     return t.expand(t.shape[0], *out.shape)
 

@@ -16,8 +16,17 @@ Ported: single- and multi-material box meshes (``mat_map``, the grouped
 return map of the 2-D path with tuples of materials and stiffnesses),
 ``load_step3`` with its warm start, mid-step hierarchy rebuild and inexact
 inner solves, the fast and the reference-faithful (``fast=False``) return
-maps, ``solve_uniaxial3``.  ``field_volumes``/``plot_midplane`` and the
-domain decomposition are not ported yet.
+maps, ``solve_uniaxial3``, the element fields as volumes
+(``field_volumes``, ``plot_midplane``).
+
+A mesh may hold one rank's element x-planes ``[x0, x1)``
+(``parallel.mesh3d.shard_mesh_data3``): the state and the fine tangent
+volumes are the rank's block, nodal volumes stay whole.  The fine K-apply
+runs kernel C on the block and its x1 - x0 + 1 node planes and all-reduces
+the nodal result over the ranks (as does the diagonal); each hierarchy
+build all-gathers the fine tangent volumes once and builds the coarse
+levels whole on every rank; the step's maxima and means are taken over the
+ranks.
 """
 import dataclasses
 from dataclasses import dataclass, field
@@ -26,9 +35,10 @@ import numpy as np
 import torch
 
 from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device
+from pylabfea_tpu_torch.ops import jtensors as jt
 from pylabfea_tpu_torch.ops import volume
 from pylabfea_tpu_torch.ops.fe_kernels import _axpy, _dot, _norm, \
-    group_stiffness, material_groups, respond_grouped
+    group_stiffness, material_groups, rank_max, rank_mean, respond_grouped
 from pylabfea_tpu_torch.ops.multigrid import _restrict_mat
 from pylabfea_tpu_torch.ops.volume import CORNERS3 as _CORNERS3
 from pylabfea_tpu_torch.ops.volume import hex_B as _hex_B
@@ -79,7 +89,10 @@ class MeshData3D:
     """Structured 3-D mesh tensors of the solver (the JAX ``MeshData3D``).
     ``grid`` = (NX, NY, NZ, lx, ly, lz, uniax); nodal fields are (3, nnX,
     nnY, nnZ).  Multi-material meshes carry ``perm``/``inv_perm``/
-    ``groups`` as the 2-D ``MeshData`` does (None otherwise).  ``cache``
+    ``groups`` as the 2-D ``MeshData`` does (None otherwise).  ``ranks``
+    (a ``parallel.distributed.RankMesh``) and ``xr`` = (x0, x1) mark a mesh
+    that holds this rank's element x-planes [x0, x1) (``nel`` elements);
+    ``grid`` and the nodal fields stay those of the whole box.  ``cache``
     holds what is derived once per mesh object (the coarse-mesh chain,
     transfer matrices); ``dataclasses.replace`` starts a copy with an
     empty one."""
@@ -96,6 +109,8 @@ class MeshData3D:
     perm: torch.Tensor = None
     inv_perm: torch.Tensor = None
     groups: tuple = None
+    ranks: object = None     # RankMesh of an element-sharded mesh
+    xr: tuple = None         # (x0, x1) element x-planes of this rank
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -227,19 +242,45 @@ def _merge3(t):
     return torch.stack(t, 0)
 
 
-def _gather_vols_list(md: MeshData3D, v):
-    """Nodal volume tuple -> list of 24 (NX, NY, NZ) element dof views."""
-    return volume.gather_vols(v, *md.grid[:3])
+def element_grid(md: MeshData3D):
+    """(NX, NY, NZ) of the mesh's elements: this rank's block (x1 - x0,
+    NY, NZ) on an element-sharded mesh."""
+    NX, NY, NZ = md.grid[:3]
+    return (NX if md.xr is None else md.xr[1] - md.xr[0], NY, NZ)
+
+
+def _node_block(md: MeshData3D, v):
+    """The node planes [x0, x1] of this rank's elements of a nodal volume
+    tuple (contiguous views); the whole volumes on an unsharded mesh."""
+    if md.xr is None:
+        return tuple(v)
+    x0, x1 = md.xr
+    return tuple(x[x0:x1 + 1] for x in v)
+
+
+def _assemble(md: MeshData3D, out):
+    """A nodal block tuple of this rank's elements -> the whole nodal
+    volumes summed over the ranks (one all-reduce); passes through on an
+    unsharded mesh."""
+    if md.xr is None:
+        return out
+    x0, x1 = md.xr
+    full = out[0].new_zeros(md.fixed.shape)
+    full[:, x0:x1 + 1] = torch.stack(out, 0)
+    return _split3(md.ranks.all_reduce(full))
 
 
 def _gather_vols(md: MeshData3D, v):
-    """Stacked (24, NX, NY, NZ) element dof volumes."""
-    return torch.stack(_gather_vols_list(md, v), 0)
+    """Stacked (24, NX, NY, NZ) element dof volumes of the mesh's
+    elements."""
+    return torch.stack(volume.gather_vols(_node_block(md, v),
+                                          *element_grid(md)), 0)
 
 
 def _scatter_vols(md: MeshData3D, f24):
-    """24 element dof volumes -> nodal volume tuple (scatter-add)."""
-    return volume.scatter_vols(f24, *md.grid[:3])
+    """24 element dof volumes -> whole nodal volume tuple (scatter-add,
+    summed over the ranks)."""
+    return _assemble(md, volume.scatter_vols(f24, *element_grid(md)))
 
 
 def elstiff_vols(md: MeshData3D, elstiff):
@@ -248,14 +289,16 @@ def elstiff_vols(md: MeshData3D, elstiff):
     volumes pass through."""
     if elstiff.dim() == 4 and elstiff.shape[0] == 36:
         return elstiff
-    NX, NY, NZ = md.grid[:3]
-    return elstiff.reshape(md.nel, 36).T.contiguous().reshape(36, NX, NY, NZ)
+    return elstiff.reshape(md.nel, 36).T.contiguous().reshape(
+        36, *element_grid(md))
 
 
 def _k_apply3_raw(md: MeshData3D, Cp, v):
     """K v without BC handling: kernel C on the card, the plain version on
-    the CPU."""
-    return volume.k_apply3(Cp, v[0], v[1], v[2], *md.grid[3:6])
+    the CPU (on an element-sharded mesh on this rank's tangent block and
+    node planes, all-reduced)."""
+    return _assemble(md, volume.k_apply3(Cp, *_node_block(md, v),
+                                         *md.grid[3:6]))
 
 
 def k_apply3_t(md: MeshData3D, Cp, v, fixed):
@@ -268,16 +311,16 @@ def k_apply3_t(md: MeshData3D, Cp, v, fixed):
 def k_diag3_t(md: MeshData3D, Cp, fixed):
     """Diagonal of K as a volume tuple, 1 on fixed dofs: per-element
     contributions D @ C with D[i, 6 a + b] = jacw sum_g B[g,a,i] B[g,b,i]."""
-    NX, NY, NZ = md.grid[:3]
     D = (md.jacw * torch.einsum('gai,gbi->iab', md.B, md.B)).reshape(24, 36)
-    d24 = (D.to(Cp.dtype) @ Cp.reshape(36, -1)).reshape(24, NX, NY, NZ)
+    d24 = (D.to(Cp.dtype) @ Cp.reshape(36, -1)).reshape(24,
+                                                        *element_grid(md))
     d = _scatter_vols(md, d24)
     return tuple(torch.where(f, 1., x) for f, x in zip(fixed, d))
 
 
 def element_deps3(md: MeshData3D, du):
-    """Element-average strain increments (Nel, 6) from a nodal increment
-    (3, nnX, nnY, nnZ)."""
+    """Element-average strain increments (Nel, 6) of the mesh's elements
+    from a whole nodal increment (3, nnX, nnY, nnZ)."""
     up = _gather_vols(md, _split3(du))
     return (md.Bsum @ up.reshape(24, -1)).T
 
@@ -442,16 +485,28 @@ def build_hierarchy3(md: MeshData3D, elstiff, min_size=4, lmax_from=None):
     chain = mesh_chain3(md, min_size)
     levels = []
     Cp = elstiff_vols(md, elstiff)
+    # the coarse levels are built whole on every rank of an element-sharded
+    # mesh from the gathered fine tangent volumes
+    whole = _whole_vols(md, Cp)
     for i, cur_md in enumerate(chain):
         prev = lmax_from[i].lmax if lmax_from is not None else None
         levels.append(_make_level3(cur_md, Cp, lmax=prev))
-        if i + 1 < len(chain):
-            Cp = coarsen_C(Cp)
+        Cp = whole = coarsen_C(whole) if i + 1 < len(chain) else whole
     bot = levels[-1]
     NX, NY, NZ = bot.md.grid[:3]
     if 3 * (NX + 1) * (NY + 1) * (NZ + 1) <= COARSE_DENSE_MAX3:
-        bot.kc_inv = _dense_coarse_inv3(bot)
+        bot.kc_inv = _dense_coarse_inv3(dataclasses.replace(bot, Cp=whole))
     return levels
+
+
+def _whole_vols(md: MeshData3D, Cp):
+    """The whole (36, NX, NY, NZ) tangent volumes from every rank's
+    x-block (position order, one exchange); ``Cp`` on an unsharded
+    mesh."""
+    if md.xr is None:
+        return Cp
+    blocks = md.ranks.exchange(Cp.contiguous())
+    return torch.cat(tuple(blocks), 1).contiguous()
 
 
 def _smooth3(level: MGLevel3, x, b, nu, zero_start=False):
@@ -571,8 +626,6 @@ def init_state3(md: MeshData3D, CV, dtype=DTYPE_DEVICE):
     """Virgin state with the elastic stiffness in every element (``CV``,
     or the groups' tuple on a multi-material mesh), materialized: kernel C
     takes contiguous tangent volumes."""
-    NX, NY, NZ = md.grid[:3]
-
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=md.device)
 
@@ -580,7 +633,7 @@ def init_state3(md: MeshData3D, CV, dtype=DTYPE_DEVICE):
         u=zeros(*md.fixed.shape), sig=zeros(md.nel, 6),
         epl=zeros(md.nel, 6), eps=zeros(md.nel, 6),
         elstiff=group_stiffness(md, CV, dtype).reshape(
-            36, NX, NY, NZ).contiguous())
+            36, *element_grid(md)).contiguous())
 
 
 #: the return map is dimension-agnostic: the 2-D grouped dispatch serves
@@ -637,7 +690,8 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
         gP = elstiff_vols(md, grad)
         dst = torch.sqrt(torch.sum((elstiff - gP) ** 2, dim=0))
         elstiff = torch.where(dst > 1.e-3, gP, elstiff)
-        return elstiff, (du, fy, sig_n, depl_n, dst.max(), cg_res, cg_it)
+        return elstiff, (du, fy, sig_n, depl_n, rank_max(md, dst.max()),
+                         cg_res, cg_it)
 
     elstiff, du = state.elstiff, du0
     outs = []
@@ -652,12 +706,13 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
     deps = element_deps3(md, du)
     new = SolverState3(u=state.u + du, sig=sig_n, epl=state.epl + depl_n,
                        eps=state.eps + deps, elstiff=elstiff)
-    diag = {'fy_max': fy.max(), 'dstiff': torch.stack([o[4] for o in outs]),
+    diag = {'fy_max': rank_max(md, fy.max()),
+            'dstiff': torch.stack([o[4] for o in outs]),
             'cg_res': cg_res, 'cg_iters': cg_it,
             'cg_iters_hist': [o[6] for o in outs], 'du': du,
-            'glob_sig': torch.mean(new.sig, dim=0),
-            'glob_eps': torch.mean(new.eps, dim=0),
-            'glob_epl': torch.mean(new.epl, dim=0)}
+            'glob_sig': rank_mean(md, new.sig),
+            'glob_eps': rank_mean(md, new.eps),
+            'glob_epl': rank_mean(md, new.epl)}
     return new, diag
 
 
@@ -678,3 +733,49 @@ def solve_uniaxial3(md: MeshData3D, mat, CV, nsteps=10, n_inner=2,
         du0 = diag['du']
         hist.append((diag['glob_sig'], diag['glob_eps'], diag['cg_iters']))
     return state, hist
+
+
+# -----------------------------------------------------------------
+# post-processing
+# -----------------------------------------------------------------
+def field_volumes(md: MeshData3D, state: SolverState3):
+    """Element fields as (NX, NY, NZ) volumes (this rank's block on an
+    element-sharded mesh), on the state's device: 'seq' (J2 equivalent
+    stress), 'peeq' (equivalent plastic strain) and the Voigt components
+    'sig_i', 'eps_i', 'epl_i' (the JAX ``field_volumes``)."""
+    shape = element_grid(md)
+    out = {'seq': jt.seq_j2_voigt(state.sig).reshape(shape),
+           'peeq': jt.eps_eq(state.epl).reshape(shape)}
+    for k in range(6):
+        out[f'sig_{k}'] = state.sig[:, k].reshape(shape)
+        out[f'eps_{k}'] = state.eps[:, k].reshape(shape)
+        out[f'epl_{k}'] = state.epl[:, k].reshape(shape)
+    return out
+
+
+def plot_midplane(md: MeshData3D, state: SolverState3, sel='seq', axis='y',
+                  index=None, ax=None, show=True):
+    """The mid-plane (or ``index``-plane) slice normal to ``axis`` ('x',
+    'y' or 'z') of the element field ``sel`` of ``field_volumes``, drawn
+    with matplotlib (imported here: the card's hosts may lack it).
+    Returns the axes."""
+    import matplotlib.pyplot as plt
+    vols = field_volumes(md, state)
+    if sel not in vols:
+        raise ValueError(f'unknown field {sel!r}; one of {sorted(vols)}')
+    v = vols[sel].detach().cpu().numpy()
+    axn = {'x': 0, 'y': 1, 'z': 2}[axis]
+    if index is None:
+        index = v.shape[axn] // 2
+    sl = np.take(v, index, axis=axn)
+    if ax is None:
+        _, ax = plt.subplots()
+    im = ax.imshow(sl.T, origin='lower', cmap='viridis')
+    plt.colorbar(im, ax=ax, label=sel)
+    rest = [a for a in 'xyz' if a != axis]
+    ax.set_xlabel(rest[0])
+    ax.set_ylabel(rest[1])
+    ax.set_title(f'{sel}, {axis} = plane {index}')
+    if show:
+        plt.show()
+    return ax

@@ -25,7 +25,9 @@ as (Ndof,) with dof = comp * nnode + node and the element dofs in
 scatter-add (``k_apply``), solved by Jacobi-preconditioned CG
 (``cg_solve``, ``solve_linear``, and ``load_step_split``'s flat branch;
 per-element B tables carry the 1-D bars).  Nothing on it is a kernel of
-its own.
+its own.  A flat mesh may hold one rank's share of the elements
+(``parallel.mesh.shard_mesh_data``): its ``ranks`` all-reduce the
+scatter-add, and the step's maxima and means are taken over the ranks.
 """
 import dataclasses
 import warnings
@@ -50,6 +52,9 @@ class MeshData:
     ``inv_perm`` and the (start, size) blocks ``groups``; multi-material
     plane-stress meshes also carry ``ps_b2``, the per-element eps_33
     condensation rows.  These are None on single-material meshes.
+    ``ranks`` (a ``parallel.distributed.RankMesh``) marks a flat mesh that
+    holds this rank's contiguous share of the elements (``nel`` of them,
+    ``parallel.mesh.shard_mesh_data``) and whole nodal vectors.
     ``cache`` holds what is derived once per mesh object (the multigrid
     coarse-mesh chain and transfer matrices); ``dataclasses.replace``
     starts a copy with an empty one."""
@@ -70,6 +75,7 @@ class MeshData:
     ps_b2: torch.Tensor = None     # (8, NX, NY) eps_33 condensation rows
     groups: tuple = None           # ((start, size), ...) per material
     dofs: torch.Tensor = None      # (Nel, 8) int64 global dofs (flat layout)
+    ranks: object = None           # RankMesh of an element-sharded mesh
     cache: dict = field(default_factory=dict, init=False, repr=False,
                         compare=False)
 
@@ -360,9 +366,24 @@ def gather_element(md: MeshData, v):
 
 def scatter_element(md: MeshData, fe):
     """Per-element (Nel, 8) contributions -> flat nodal vector
-    (scatter-add)."""
-    return fe.new_zeros(md.ndof).index_add(0, md.dofs.reshape(-1),
-                                           fe.reshape(-1))
+    (scatter-add, summed over the ranks of an element-sharded mesh)."""
+    out = fe.new_zeros(md.ndof).index_add(0, md.dofs.reshape(-1),
+                                          fe.reshape(-1))
+    return out if md.ranks is None else md.ranks.all_reduce(out)
+
+
+def rank_max(md, t):
+    """``t`` (a maximum over this mesh's elements) maximized over the
+    ranks of an element-sharded mesh."""
+    return t if md.ranks is None else md.ranks.max(t)
+
+
+def rank_mean(md, x):
+    """The mean over every element of element rows ``x`` (Nel, k): over
+    the ranks of an element-sharded mesh, whose shares are equal."""
+    if md.ranks is None:
+        return torch.mean(x, dim=0)
+    return md.ranks.sum(torch.sum(x, dim=0)) / (md.nel * md.ranks.size)
 
 
 def element_stiffness(md: MeshData, elstiff):
@@ -645,7 +666,7 @@ def _respond_and_update(md: MeshData, state: SolverState, mat, CV, du,
                                 dim=1)
         elstiff = torch.where((dst > 1.e-3)[:, None, None], grad,
                               state.elstiff)
-        return fy, sig_n, depl_n, elstiff, deps, dst.max()
+        return fy, sig_n, depl_n, elstiff, deps, rank_max(md, dst.max())
     gP = elstiff_planes(md, grad)
     dst = torch.sqrt(torch.sum((state.elstiff - gP) ** 2, dim=0))
     elstiff = torch.where(dst > 1.e-3, gP, state.elstiff)
@@ -774,7 +795,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
         # next hierarchy rebuild, the warm start and the gate
         dst = float(dst_t)
         if tail or (gate and i >= min(n_inner, count - 1)):
-            fmax = float(torch.max(fy / _gate_scale(md, mat)))
+            fmax = float(rank_max(md, torch.max(fy / _gate_scale(md, mat))))
             dst_ok = (dst <= dst_exit) if strict_abs else (
                 dst <= 0.1 * dst_exit or (held and dst <= dst_exit))
             if fmax <= yf_tolerance * 1.0001 and dst_ok:
@@ -794,7 +815,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             tail, held = True, False
         i += 1
     if not converged and (gate or tail):
-        fmax = float(torch.max(fy / _gate_scale(md, mat)))
+        fmax = float(rank_max(md, torch.max(fy / _gate_scale(md, mat))))
         if fmax > yf_tolerance * 1.0001:
             warnings.warn(
                 f'load_step_split: no convergence of the plasticity '
@@ -809,12 +830,11 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             md, state, mat, CV, du, fast and not commit_faithful, nsub))
     new = SolverState(u=state.u + du, sig=sig_n, epl=state.epl + depl_n,
                       eps=state.eps + deps, elstiff=elstiff)
-    diag = {'fy_max': fy.max(), 'dstiff': dst, 'cg_res': cg_res,
-            'cg_iters': cg_it, 'cg_iters_hist': cg_hist, 'du': du,
-            'glob_sig': torch.mean(sig_n, dim=0),
-            'glob_eps': torch.mean(new.eps, dim=0),
-            'glob_epl': torch.mean(new.epl, dim=0),
-            'kes': kes}
+    diag = {'fy_max': rank_max(md, fy.max()), 'dstiff': dst,
+            'cg_res': cg_res, 'cg_iters': cg_it, 'cg_iters_hist': cg_hist,
+            'du': du, 'glob_sig': rank_mean(md, sig_n),
+            'glob_eps': rank_mean(md, new.eps),
+            'glob_epl': rank_mean(md, new.epl), 'kes': kes}
     return new, diag
 
 

@@ -8,11 +8,11 @@ the ranks of one host contiguous so that neighbouring strips exchange their
 halos inside a host wherever possible.
 
 ``RankMesh`` carries the only collectives the solvers use: ``all_reduce``
-(a sum) and ``broadcast``.  Both backends take them on CUDA tensors, so the
-halo exchange is built on ``all_reduce`` as well (``exchange``): every
-position writes its boundary slabs into its own slot of a zero buffer and
-the sum hands every position everyone's slabs, bit for bit (each entry has
-one non-zero contributor).  NCCL serves ranks on distinct cards, Gloo the
+(a sum, or a maximum) and ``broadcast``.  Both backends take them on CUDA
+tensors, so the halo exchange is built on ``all_reduce`` as well
+(``exchange``): every position writes its boundary slabs into its own slot
+of a zero buffer and the sum hands every position everyone's slabs, bit for
+bit (each entry has one non-zero contributor).  NCCL serves ranks on distinct cards, Gloo the
 CPU and several ranks on one card (NCCL refuses two ranks of a communicator
 on one GPU; Gloo's send/recv take CPU tensors only).
 """
@@ -69,10 +69,11 @@ class RankMesh:
     def size(self):
         return len(self.order)
 
-    def all_reduce(self, t):
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
+    def all_reduce(self, t, op=dist.ReduceOp.SUM):
+        """Reduce ``t`` over the ranks (a sum, or ``op``), in place;
+        returns ``t``."""
         if self.size > 1:
-            dist.all_reduce(t)
+            dist.all_reduce(t, op)
         return t
 
     def sum(self, t):
@@ -81,6 +82,14 @@ class RankMesh:
         if self.size == 1:
             return t
         return self.all_reduce(t.reshape(-1).clone()).reshape(t.shape)
+
+    def max(self, t):
+        """The elementwise maximum of ``t`` over the ranks (a new tensor
+        where there are several)."""
+        if self.size == 1:
+            return t
+        return self.all_reduce(t.reshape(-1).clone(),
+                               dist.ReduceOp.MAX).reshape(t.shape)
 
     def broadcast(self, t, src_pos=0):
         """``t`` of position ``src_pos`` on every rank, in place."""

@@ -1,13 +1,15 @@
 """Runs of the domain decomposition on every rank: the targets that
 ``launch.spawn`` hands to its ranks (``suite(mesh, device, cases)``), and
 that a single process calls with the one-rank mesh.  The CPU tests and
-``chip_smoke.py`` phase 17 run them.
+``chip_smoke.py`` phases 17 and 18 run them.
 
 A case is a dict of plain values (it crosses into spawned processes):
 
 * ``kind``: 'strip_elastic' (the elastic halo K-apply and CG of the JAX
-  package's multi-process test), 'strip_step' (``strip_load_step``) or
-  'slab' (``solve_uniaxial3_slab``);
+  package's multi-process test), 'strip_step' (``strip_load_step``),
+  'slab' (``solve_uniaxial3_slab``), 'elem2d' / 'elem3d' (load steps on
+  the element-sharded meshes of ``parallel.mesh`` / ``mesh3d``) or 'fit'
+  (``calibrate.fit_plasticity`` over the rank's share of the paths);
 * the mesh: ``NX``, ``NY`` (``NZ``), ``LX``, ``LY``, ``eps``, ``dtype``
   ('float32' | 'float64'), optional ``bc`` and ``mat_map``;
 * the materials ``mats``: 'svc' (the trained SVC of
@@ -15,7 +17,11 @@ A case is a dict of plain values (it crosses into spawned processes):
   'inclusion' (``workloads.inclusion_materials`` with their map and BCs)
   or a list of ``convert.materials_from_params`` dicts with ``CVs``;
 * the step's options (``load_frac``, ``n_inner``, ``cg_tol``,
-  ``schwarz``, ``grouped``; ``nsteps``, ``two_level`` for slabs).
+  ``schwarz``, ``grouped``; ``nsteps``, ``two_level`` for slabs;
+  ``fracs``, ``cg_maxiter`` for the element-sharded steps, each step after
+  the first warm-started from the last increment);
+* for 'fit': ``deps``, ``sig`` (every path, numpy; the rank fits its
+  contiguous share), ``CV``, ``steps`` and ``dtype``.
 
 Each result is a dict of numpy arrays and numbers of this rank's block,
 with the seconds of the solver call and the kernel launches it made.
@@ -26,7 +32,12 @@ import numpy as np
 import torch
 
 from pylabfea_tpu_torch import convert, workloads
-from pylabfea_tpu_torch.ops import stencil, svc_kernels, volume
+from pylabfea_tpu_torch.ops import calibrate, fe3d, stencil, svc_kernels, \
+    volume
+from pylabfea_tpu_torch.ops import fe_kernels as fek
+from pylabfea_tpu_torch.ops.femu import flatten_mesh
+from pylabfea_tpu_torch.parallel import mesh as em
+from pylabfea_tpu_torch.parallel import mesh3d as em3
 from pylabfea_tpu_torch.parallel import sharded as sh
 from pylabfea_tpu_torch.parallel import sharded3 as sh3
 
@@ -155,7 +166,92 @@ def slab(mesh, device, case):
                 seconds=time.perf_counter() - t0, launches=_launches(n0))
 
 
-KINDS = dict(strip_elastic=strip_elastic, strip_step=strip_step, slab=slab)
+def _steps(step, state, fracs, device):
+    """``step(state, frac, du0)`` for each load fraction, each after the
+    first warm-started from the last increment: (state, the diags,
+    seconds, kernel launches)."""
+    diags, du0 = [], None
+    _sync(device)
+    t0, n0 = time.perf_counter(), _launches()
+    for frac in fracs:
+        state, d = step(state, frac, du0)
+        du0 = d['du']
+        diags.append(d)
+    _sync(device)
+    return state, diags, time.perf_counter() - t0, _launches(n0)
+
+
+def elem2d(mesh, device, case):
+    """``load_step_split`` on this rank's share of the elements of the
+    flat NX x NY mesh (``parallel.mesh``), from the virgin state, at the
+    load fractions ``fracs``."""
+    dt = getattr(torch, case['dtype'])
+    mat, CV, kw = _materials(case, dt, device)
+    md = fek.rect_mesh(case['NX'], case['NY'], LX=case.get('LX', 1.),
+                       LY=case.get('LY', 1.), uniax='y',
+                       eps_tot=case.get('eps', 0.), dtype=dt, device=device,
+                       **kw)
+    md_s = em.shard_mesh_data(md, mesh, device)
+    state = em.shard_state(fek.init_state(flatten_mesh(md), CV, dtype=dt),
+                           mesh)
+
+    def step(st, frac, du0):
+        return fek.load_step_split(
+            md_s, st, mat, CV, frac, n_inner=case.get('n_inner', 2),
+            cg_tol=case.get('cg_tol'), cg_maxiter=case.get('cg_maxiter',
+                                                           500), du0=du0)
+
+    state, diags, secs, launches = _steps(step, state, case['fracs'], device)
+    return dict(sig=_np(state.sig), u=_np(state.u), du=_np(diags[-1]['du']),
+                glob_sig=np.stack([_np(d['glob_sig']) for d in diags]),
+                cg_iters_hist=[d['cg_iters_hist'] for d in diags],
+                seconds=secs, launches=launches)
+
+
+def elem3d(mesh, device, case):
+    """``load_step3`` on this rank's element x-planes of the NX x NY x
+    NZ box (``parallel.mesh3d``, uniaxial z to ``eps``), from the virgin
+    state, at the load fractions ``fracs``."""
+    dt = getattr(torch, case['dtype'])
+    mat, CV, kw = _materials(case, dt, device)
+    md = fe3d.box_mesh(case['NX'], case['NY'], case['NZ'], uniax='z',
+                       eps_tot=case['eps'], dtype=dt, device=device, **kw)
+    md_s = em3.shard_mesh_data3(md, mesh, device)
+    state = em3.shard_state3(fe3d.init_state3(md, CV, dtype=dt), mesh)
+
+    def step(st, frac, du0):
+        return fe3d.load_step3(md_s, st, mat, CV, frac,
+                               n_inner=case.get('n_inner', 2), du0=du0)
+
+    state, diags, secs, launches = _steps(step, state, case['fracs'], device)
+    return dict(sig=_np(state.sig), u=_np(state.u),
+                glob_sig=np.stack([_np(d['glob_sig']) for d in diags]),
+                cg_iters_hist=[d['cg_iters_hist'] for d in diags],
+                seconds=secs, launches=launches)
+
+
+def fit(mesh, device, case):
+    """``calibrate.fit_plasticity`` on this rank's contiguous share of
+    the paths (``np.array_split`` in position order), sharded over the
+    ranks."""
+    dt = getattr(torch, case['dtype'])
+    part = np.array_split(np.arange(len(case['deps'])), mesh.size)[mesh.pos]
+
+    def ten(a):
+        return torch.as_tensor(np.asarray(a)[part], dtype=dt, device=device)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    params, info = calibrate.fit_plasticity(
+        ten(case['deps']), ten(case['sig']), np.asarray(case['CV']),
+        steps=case['steps'], ranks=mesh)
+    _sync(device)
+    return dict(params, loss=np.asarray(info['loss']), sim=info['sim'],
+                seconds=time.perf_counter() - t0)
+
+
+KINDS = dict(strip_elastic=strip_elastic, strip_step=strip_step, slab=slab,
+             elem2d=elem2d, elem3d=elem3d, fit=fit)
 
 
 def suite(mesh, device, cases):

@@ -3,16 +3,16 @@ the fixed-trip return map it differentiates, against the JAX reference in
 float64: values, forward-mode Jacobian columns (``jax.jacfwd``) and
 reverse-mode gradients (``jax.grad``) through both integrators, a short
 Levenberg-Marquardt fit and a database fit in the tensor shear
-convention."""
-import functools
+convention.  The return map runs live in JAX; the Jacobians, gradients
+and fits are held against JAX's results committed in
+``pylabfea_tpu_torch/data/ref_calibrate.npz``
+(``tools/make_torch_ref_fixtures.py calibrate``)."""
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.flatten_util import ravel_pytree
 
 from pylabfea_tpu.ops import calibrate as jcal
 from pylabfea_tpu.ops import constitutive as jcon
@@ -29,6 +29,8 @@ torch.set_num_threads(1)
 HILL = np.array([1.2, 0.9, 1.05, 1.0, 1.0, 1.0])
 SY, KHARD = 150., 500.
 CPU64 = dict(dtype=torch.float64, device='cpu')
+REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'pylabfea_tpu_torch', 'data', 'ref_calibrate.npz')
 #: theta of the derivative checks: Hill, linear and Voce hardening, and
 #: the 21 Cholesky coefficients of the elastic stiffness
 THETA = {'log_sy': np.log(SY), 'log_hill': np.log(HILL), 'raw_dsy': 2.0,
@@ -132,26 +134,25 @@ def test_svc_derivative_raises_and_plain_call_serves():
                            fixed_trip=True)
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_ref(integ):
+@pytest.fixture(scope='module')
+def ref():
+    """JAX's results of ``tools/make_torch_ref_fixtures.py calibrate``."""
+    with np.load(REF) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _jax_ref(ref, integ):
     """JAX values and forward-mode Jacobian of ``simulate_paths`` with
     ``integ`` (the elastic constants among the parameters), and for the
-    unrolled integrator the reverse-mode gradient of the mean square,
-    computed once for the module."""
+    unrolled integrator the reverse-mode gradient of the mean square (from
+    the committed fixture, whose inputs are checked here)."""
     deps = _paths(4, 8, seed=1)
     th = dict(THETA, cv_raw=tcal._cv_raw_of(_cv()))
-    x0, unravel = ravel_pytree({k: jnp.asarray(v) for k, v in th.items()})
-
-    def f(x):
-        y = jcal.simulate_paths(unravel(x), jnp.asarray(_cv()),
-                                jnp.asarray(deps), 40, 1, 0.01,
-                                integ).ravel()
-        return y, y
-    J, y = jax.jacfwd(f, has_aux=True)(x0)
-    g = jax.grad(lambda x: jnp.mean(f(x)[0] ** 2))(x0) if \
-        integ == 'unrolled' else None
-    return deps, th, (np.asarray(y), np.asarray(J),
-                      None if g is None else np.asarray(g))
+    np.testing.assert_array_equal(deps, ref['jac.deps'])
+    for k, v in th.items():
+        np.testing.assert_array_equal(v, ref[f'jac.theta.{k}'])
+    return deps, th, (ref[f'jac.{integ}.y'], ref[f'jac.{integ}.J'],
+                      ref.get(f'jac.{integ}.g'))
 
 
 def _port_fn(deps, th, integ):
@@ -166,11 +167,11 @@ def _port_fn(deps, th, integ):
 
 
 @pytest.mark.parametrize('integ', ['unrolled', 'implicit'])
-def test_simulate_paths_and_jacobian_match_jax(integ):
+def test_simulate_paths_and_jacobian_match_jax(ref, integ):
     """A JAX theta carried by ``convert.theta_from_arrays`` gives the same
     stress paths, and the forward-mode Jacobian (every column in one pass)
     matches ``jax.jacfwd`` within 1e-9."""
-    deps, th, out = _jax_ref(integ)
+    deps, th, out = _jax_ref(ref, integ)
     f, x0 = _port_fn(deps, th, integ)
     val, J = dual.jacfwd(f, x0)
     _close(f(x0), out[0], 1e-12)
@@ -179,12 +180,12 @@ def test_simulate_paths_and_jacobian_match_jax(integ):
 
 
 @pytest.mark.parametrize('integ', ['unrolled', 'implicit'])
-def test_autograd_gradient_matches_jax(integ):
+def test_autograd_gradient_matches_jax(ref, integ):
     """``torch.autograd`` through the return-map scan: against ``jax.grad``
     for the unrolled integrator, and for the implicit one (whose backward
     is the implicit-function formula of ``_BEProject``) against the
     gradient 2/m J^T y of JAX's forward-mode Jacobian."""
-    deps, th, (y, J, g) = _jax_ref(integ)
+    deps, th, (y, J, g) = _jax_ref(ref, integ)
     if g is None:
         g = 2. / y.size * J.T @ y
     f, x0 = _port_fn(deps, th, integ)
@@ -193,11 +194,11 @@ def test_autograd_gradient_matches_jax(integ):
     _close(x.grad, g, 1e-9)
 
 
-def test_implicit_projection_serves_torch_func_and_forward_ad():
+def test_implicit_projection_serves_torch_func_and_forward_ad(ref):
     """The implicit projection is a ``torch.autograd.Function``: a
     ``torch.func.jvp`` column and a ``forward_ad`` column through it equal
     ``jax.jacfwd``'s."""
-    deps, th, out = _jax_ref('implicit')
+    deps, th, out = _jax_ref(ref, 'implicit')
     f, x0 = _port_fn(deps, th, 'implicit')
     e = torch.zeros_like(x0)
     e[0] = 1.
@@ -227,41 +228,42 @@ def test_gradients_finite_at_virgin_state():
         assert torch.isfinite(v.grad).all(), k
 
 
-def test_fit_plasticity_matches_jax():
+def test_fit_plasticity_matches_jax(ref):
     """Three Levenberg-Marquardt steps from the slope seed land where
-    JAX's do, with the same cost history."""
+    JAX's do, with the same cost history (JAX's data and fit from the
+    committed fixture)."""
     deps = _paths(6, 12, seed=3)
-    sig = _simulate(deps)
+    np.testing.assert_array_equal(deps, ref['fit.deps'])
+    sig = ref['fit.sig']
     kw = dict(steps=3, maxiter=40)
-    pj, ij = jcal.fit_plasticity(jnp.asarray(deps), jnp.asarray(sig),
-                                 jnp.asarray(_cv()), **kw)
     pt, it = tcal.fit_plasticity(torch.as_tensor(deps), torch.as_tensor(sig),
                                  _cv(), **kw)
-    np.testing.assert_allclose(it['loss'], ij['loss'], rtol=1e-6)
+    np.testing.assert_allclose(it['loss'], ref['fit.loss'], rtol=1e-6)
     assert it['loss'][-1] < 1e-3 * it['loss'][0]
     for k in ('sy', 'khard', 'hill'):
-        np.testing.assert_allclose(pt[k], pj[k], rtol=1e-8)
-    _close(it['sim'], ij['sim'], 1e-8)
+        np.testing.assert_allclose(pt[k], ref[f'fit.{k}'], rtol=1e-8)
+    _close(it['sim'], ref['fit.sim'], 1e-8)
     for k in ('sy', 'khard', 'hill'):
-        np.testing.assert_allclose(it['param_std'][k], ij['param_std'][k],
+        np.testing.assert_allclose(it['param_std'][k], ref[f'fit.std.{k}'],
                                    rtol=1e-5)
 
 
-def test_fit_from_data_tensor_convention_matches_jax():
+def test_fit_from_data_tensor_convention_matches_jax(ref):
     """A records dict in the tensor shear convention: the shear strains
     doubled, the elastic stiffness refitted from the pre-yield samples
     (the port's copy of ``get_elastic_coefficients``) and a short
-    deviatoric fit, as JAX does them."""
+    deviatoric fit, as JAX does them (JAX's fit from the committed
+    fixture)."""
     deps = _paths(6, 16, seed=5, step=1.2e-3, first=2e-4)
-    sig = _simulate(deps)
+    sig = ref['data.sig']
     eps = np.cumsum(deps, axis=1)
     eps[..., 3:] *= 0.5
+    np.testing.assert_array_equal(eps, ref['data.eps'])
     records = {f'case{p}': {'Stress': sig[p], 'Strain_Total': eps[p]}
                for p in range(len(deps))}
     kw = dict(nsteps=12, shear_convention='tensor', steps=2)
-    pj, ij = jcal.fit_from_data(records, **kw)
     pt, it = tcal.fit_from_data(records, device='cpu', **kw)
-    _close(it['CV'], ij['CV'], 1e-9)
-    np.testing.assert_allclose(it['loss'], ij['loss'], rtol=1e-6)
+    _close(it['CV'], ref['data.CV'], 1e-9)
+    np.testing.assert_allclose(it['loss'], ref['data.loss'], rtol=1e-6)
     for k in ('sy', 'khard', 'hill'):
-        np.testing.assert_allclose(pt[k], pj[k], rtol=1e-7)
+        np.testing.assert_allclose(pt[k], ref[f'data.{k}'], rtol=1e-7)

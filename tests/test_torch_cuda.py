@@ -856,3 +856,25 @@ def test_decomposition_on_the_card_matches_the_cpu(cuda, case):
             <= 1e-9 * np.abs(cpu[k]).max(), k
     need = 'k_apply3' if case['kind'] == 'slab' else 'k_apply'
     assert card['launches'][need] > 0 and cpu['launches'][need] == 0
+
+
+@pytest.mark.parametrize('case', [
+    dict(kind='elem2d', NX=32, NY=32, eps=0.002, mats='svc',
+         fracs=[0.25, 0.25], n_inner=2, dtype='float64', cg_tol=1e-10,
+         cg_maxiter=2000),
+    dict(kind='elem3d', NX=8, NY=8, NZ=8, eps=0.002, mats='j2',
+         fracs=[0.4, 0.3], n_inner=2, dtype='float64')])
+def test_element_sharded_steps_on_the_card_match_the_cpu(cuda, case):
+    """The element-sharded 2-D and 3-D steps at world size 1 on the card
+    (kernels A and C) against the CPU's plain versions, float64 within
+    1e-9, the same CG histories; the card's run launches its kernel."""
+    from pylabfea_tpu_torch.parallel import distributed, runs
+    one = distributed.RankMesh()
+    card, = runs.suite(one, cuda, [case])
+    cpu, = runs.suite(one, torch.device('cpu'), [case])
+    for k in ('glob_sig', 'sig', 'u'):
+        assert np.abs(card[k] - cpu[k]).max() \
+            <= 1e-9 * np.abs(cpu[k]).max(), k
+    assert card['cg_iters_hist'] == cpu['cg_iters_hist']
+    need = 'svc_f_grad' if case['kind'] == 'elem2d' else 'k_apply3'
+    assert card['launches'][need] > 0 and cpu['launches'][need] == 0

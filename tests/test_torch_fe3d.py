@@ -1,7 +1,15 @@
 """PyTorch port: the 3-D hex8 solver (mesh, operators, multigrid, load
 step) and the analytic return map against the JAX reference in float64.
 Every JAX mesh is built fresh with ``box_mesh`` (its coarse-mesh chain cache
-would serve a stale mesh for ``_replace`` copies)."""
+would serve a stale mesh for ``_replace`` copies).
+
+The meshes, operators, transfers and the return map run live in JAX; the
+16^3 hierarchy and MG-CG solve, the 8^3 load steps and the 2^3 uniaxial
+history are held against JAX's results committed in
+``pylabfea_tpu_torch/data/ref_fe3d.npz``
+(``tools/make_torch_ref_fixtures.py fe3d``)."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +29,8 @@ torch.set_num_threads(1)
 
 F64 = jnp.float64
 T64 = dict(dtype=torch.float64, device='cpu')
+REF = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'pylabfea_tpu_torch', 'data', 'ref_fe3d.npz')
 E, NU, SY, KH = 200.e3, 0.3, 150., 500.
 BC = dict(xlo={0: ('disp', 0.)}, ylo={1: ('disp', 0.)},
           zlo={2: ('disp', 0.)}, zhi={2: ('force', 120.)},
@@ -71,6 +81,18 @@ def _assert_state(st, sj, rtol):
         assert _rel(getattr(st, f).numpy(), getattr(sj, f)) <= rtol, f
 
 
+@pytest.fixture(scope='module')
+def ref():
+    """JAX's results of ``tools/make_torch_ref_fixtures.py fe3d``."""
+    with np.load(REF) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _ref_state(ref, tag):
+    return tfe3d.SolverState3(**{f: ref[f'{tag}.{f}'] for f in
+                                 ('u', 'sig', 'epl', 'eps', 'elstiff')})
+
+
 @pytest.mark.parametrize('kw', [dict(), dict(LX=2., LY=1.5, bc=BC)])
 def test_box_mesh_fields_bitwise(kw):
     md, mt = _meshes(3, **kw)
@@ -113,98 +135,89 @@ def test_operators_and_transfers_match_jax():
         assert _rel(a.numpy(), b) <= 1e-12
 
 
-def test_hierarchy_matches_jax():
+def test_hierarchy_matches_jax(ref):
     """Levels 16, 8, 4 with a dense bottom: diagonals, lambda_max and the
-    bottom inverse, 1e-10."""
+    bottom inverse, 1e-10 (JAX's from the committed fixture)."""
     _, _, CV = _j2()
-    md, mt = _meshes(16)
+    _, mt = _meshes(16)
     els = _tangents(CV, 16)
-    lj = jfe3d.build_hierarchy3(md, jnp.asarray(els))
+    np.testing.assert_array_equal(els, ref['hier.els'])
     lt = tfe3d.build_hierarchy3(mt, torch.tensor(els))
     assert [lv.md.grid[0] for lv in lt] == [16, 8, 4]
-    assert len(lj) == len(lt)
-    for a, b in zip(lt, lj):
-        for x, y in zip(a.diag, b.diag):
-            assert _rel(x.numpy(), y) <= 1e-10
-        assert _rel(a.lmax.numpy(), b.lmax) <= 1e-10
+    assert len(lt) == int(ref['hier.nlev'])
+    for i, a in enumerate(lt):
+        assert _rel(torch.stack(a.diag).numpy(), ref[f'hier.{i}.diag']) \
+            <= 1e-10
+        assert _rel(a.lmax.numpy(), ref[f'hier.{i}.lmax']) <= 1e-10
     assert lt[-1].kc_inv is not None
-    assert _rel(lt[-1].kc_inv.numpy(), lj[-1].kc_inv) <= 1e-10
+    assert _rel(lt[-1].kc_inv.numpy(), ref['hier.kc_inv']) <= 1e-10
 
 
-def test_mg_cg_solve_matches_jax():
-    """Elastic MG-CG solve at 16^3: solution 1e-10, same iteration count."""
+def test_mg_cg_solve_matches_jax(ref):
+    """Elastic MG-CG solve at 16^3: solution 1e-10, same iteration count
+    (JAX's from the committed fixture)."""
     _, _, CV = _j2()
-    md, mt = _meshes(16)
-    els = np.broadcast_to(np.asarray(CV).reshape(36, 1, 1, 1),
-                          (36, 16, 16, 16)).copy()
-    res = {}
-    for mod, m, arr in ((jfe3d, md, jnp.asarray), (tfe3d, mt, torch.tensor)):
-        Cp = arr(els)
-        fixT = mod._split3(m.fixed)
-        bcT = mod._split3(m.fixed_val)
-        where = jnp.where if mod is jfe3d else torch.where
-        du_bc = tuple(where(f, b, 0.) for f, b in zip(fixT, bcT))
-        neg = mod._k_apply3_raw(m, Cp, du_bc)
-        rhs = tuple(where(f, b, -q) for f, b, q in zip(fixT, bcT, neg))
-        levels = mod.build_hierarchy3(m, Cp)
-        x, r, it = mod.mg_cg_solve3(levels, rhs, du_bc, tol=1e-10)
-        res[mod] = ([np.asarray(c) for c in x], float(r), int(it))
-    (xt, rt, itt), (xj, rj, itj) = res[tfe3d], res[jfe3d]
-    assert itt == itj and rt <= 1e-10
-    for a, b in zip(xt, xj):
-        assert _rel(a, b) <= 1e-10
+    _, mt = _meshes(16)
+    Cp = torch.tensor(np.broadcast_to(np.asarray(CV).reshape(36, 1, 1, 1),
+                                      (36, 16, 16, 16)).copy())
+    fixT, bcT = tfe3d._split3(mt.fixed), tfe3d._split3(mt.fixed_val)
+    du_bc = tuple(torch.where(f, b, 0.) for f, b in zip(fixT, bcT))
+    neg = tfe3d._k_apply3_raw(mt, Cp, du_bc)
+    rhs = tuple(torch.where(f, b, -q) for f, b, q in zip(fixT, bcT, neg))
+    x, r, it = tfe3d.mg_cg_solve3(tfe3d.build_hierarchy3(mt, Cp), rhs, du_bc,
+                                  tol=1e-10)
+    assert it == int(ref['mgcg.iters']) and r <= 1e-10
+    assert _rel(torch.stack(x).numpy(), ref['mgcg.x']) <= 1e-10
 
 
-def test_load_steps_match_jax():
+def test_load_steps_match_jax(ref):
     """A cold 0.4 step and a warm 0.3 step (du0) at 8^3, J2 + hardening:
-    state to 1e-9 and identical CG iteration histories."""
-    dm, mat, CV = _j2()
-    md, mt = _meshes(8)
-    sj = jfe3d.init_state3(md, CV, dtype=F64)
+    state to 1e-9 and identical CG iteration histories (JAX's from the
+    committed fixture)."""
+    _, mat, CV = _j2()
+    _, mt = _meshes(8)
     st = tfe3d.init_state3(mt, CV, dtype=torch.float64)
-    dj = dt = None
-    for frac in (0.4, 0.3):
-        sj, dj = jfe3d.load_step3(md, sj, dm, CV, frac, n_inner=2,
-                                  du0=None if dj is None else dj['du'])
+    dt = None
+    for k, frac in enumerate((0.4, 0.3)):
         st, dt = tfe3d.load_step3(mt, st, mat, CV, frac, n_inner=2,
                                   du0=None if dt is None else dt['du'])
-        assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
-        _assert_state(st, sj, 1e-9)
-        assert _rel(dt['glob_sig'].numpy(), dj['glob_sig']) <= 1e-9
-    assert np.asarray(sj.epl).any()
+        assert dt['cg_iters_hist'] == list(ref[f'step{k}.hist'])
+        _assert_state(st, _ref_state(ref, f'step{k}'), 1e-9)
+        assert _rel(dt['glob_sig'].numpy(), ref[f'step{k}.glob_sig']) <= 1e-9
+    assert ref['step1.epl'].any()
 
 
-def test_step_from_converted_state_matches_jax():
+def test_step_from_converted_state_matches_jax(ref):
     """A JAX state carried over with convert.state3_from_arrays continues
     like the JAX step."""
-    dm, mat, CV = _j2()
-    md, mt = _meshes(8)
-    sj = jfe3d.init_state3(md, CV, dtype=F64)
-    sj, dj = jfe3d.load_step3(md, sj, dm, CV, 0.4, n_inner=2)
+    _, mat, CV = _j2()
+    _, mt = _meshes(8)
     st = convert.state3_from_arrays(
-        {f: np.asarray(getattr(sj, f)) for f in sj._fields}, **T64)
-    du0 = torch.tensor(np.asarray(dj['du']))
-    sj, dj = jfe3d.load_step3(md, sj, dm, CV, 0.3, n_inner=2, du0=dj['du'])
+        {f: ref[f'step0.{f}'] for f in ('u', 'sig', 'epl', 'eps',
+                                          'elstiff')}, **T64)
+    du0 = torch.tensor(ref['step0.du'])
     st, dt = tfe3d.load_step3(mt, st, mat, CV, 0.3, n_inner=2, du0=du0)
-    assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
-    _assert_state(st, sj, 1e-9)
+    assert dt['cg_iters_hist'] == list(ref['step1.hist'])
+    _assert_state(st, _ref_state(ref, 'step1'), 1e-9)
 
 
-def test_solve_uniaxial_closed_form_and_jax():
+def test_solve_uniaxial_closed_form_and_jax(ref):
     """2^3 box, 8 steps: the J2 + linear hardening uniaxial closed form
     sig = (sy + khard eps) E / (E + khard), a homogeneous field, and the
-    JAX history."""
-    dm, mat, CV = _j2()
-    md, mt = _meshes(2)
+    JAX history (from the committed fixture)."""
+    _, mat, CV = _j2()
+    _, mt = _meshes(2)
     st, ht = tfe3d.solve_uniaxial3(mt, mat, CV, nsteps=8, n_inner=2)
-    sj, hj = jfe3d.solve_uniaxial3(md, dm, CV, nsteps=8, n_inner=2)
     gs = ht[-1][0].numpy()
     np.testing.assert_allclose(gs[2], (SY + KH * 0.002) * E / (E + KH),
                                rtol=1e-6)
     sig = st.sig.numpy()
     assert np.abs(sig - sig.mean(0)).max() < 1e-8
-    _assert_state(st, sj, 1e-9)
-    for (gt, et, it), (gj, ej, ij) in zip(ht, hj):
+    _assert_state(st, _ref_state(ref, 'uni'), 1e-9)
+    assert len(ht) == len(ref['uni.iters'])
+    for (gt, et, it), gj, ej, ij in zip(ht, ref['uni.glob_sig'],
+                                        ref['uni.glob_eps'],
+                                        ref['uni.iters']):
         assert _rel(gt.numpy(), gj) <= 1e-9 and _rel(et.numpy(), ej) <= 1e-9
         assert it == int(ij)
 

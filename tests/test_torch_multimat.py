@@ -4,7 +4,12 @@ reference in float64: the 2-D 3-material inclusion of ``bench.py``
 two-group SVC + elastic mesh, the convergence gate, the 3-D stiff
 inclusion, and the 3-D reference-faithful route (``fast=False``).  Every
 JAX mesh is built fresh (its coarse-mesh chain cache would serve a stale
-mesh for ``_replace`` copies)."""
+mesh for ``_replace`` copies).
+
+The meshes, their material blocks and stiffnesses are held against JAX's
+live; the grouped return map, the load steps and solves against JAX's
+results committed in ``pylabfea_tpu_torch/data/ref_multimat.npz``
+(``tools/make_torch_ref_fixtures.py multimat``)."""
 import os
 
 import jax.numpy as jnp
@@ -26,8 +31,9 @@ from pylabfea_tpu_torch.ops import fe_kernels as tfek
 # JAX tests' 8-device collectives need (their rendezvous then stalls).
 torch.set_num_threads(1)
 
-NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))), 'REF_SOLVE_svc.npz')
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NPZ = os.path.join(ROOT, 'REF_SOLVE_svc.npz')
+REF = os.path.join(ROOT, 'pylabfea_tpu_torch', 'data', 'ref_multimat.npz')
 F64 = jnp.float64
 T64 = dict(dtype=torch.float64, device='cpu')
 #: the bench.py inclusion's BCs at LX = LY = 4: bottom and top displaced,
@@ -78,9 +84,43 @@ def _inclusion_meshes(N):
             tfek.rect_mesh(N, N, **T64, **kw))
 
 
-def _assert_state(st, sj, rtol):
-    for f in ('u', 'sig', 'epl', 'eps', 'elstiff'):
+def _assert_state(st, sj, rtol, fields=('u', 'sig', 'epl', 'eps',
+                                         'elstiff')):
+    for f in fields:
         assert _rel(getattr(st, f).numpy(), getattr(sj, f)) <= rtol, f
+
+
+@pytest.fixture(scope='module')
+def ref():
+    """JAX's results of ``tools/make_torch_ref_fixtures.py multimat``."""
+    with np.load(REF) as z:
+        return {k: z[k] for k in z.files}
+
+
+class _State:
+    """A committed JAX state (``tag.u``, ``tag.sig``, ...)."""
+
+    def __init__(self, ref, tag):
+        for f in ('u', 'sig', 'epl', 'eps', 'elstiff'):
+            setattr(self, f, ref[f'{tag}.{f}'])
+
+
+def _steps_match(ref, tag, mt, tms, CVs, fracs):
+    """Warm-started port steps against the committed JAX steps ``tag{k}``:
+    1e-9 on the fields and glob_sig, equal CG histories.  Returns the
+    last state."""
+    st = tfek.init_state(mt, CVs, dtype=torch.float64)
+    dt = None
+    for k, frac in enumerate(fracs):
+        warm = {} if dt is None else dict(
+            du0=dt['du'], kes0=dt['kes'], dst0=dt['dstiff'])
+        st, dt = tfek.load_step_split(mt, st, tms, CVs, frac, n_inner=2,
+                                      **warm)
+        assert dt['cg_iters_hist'] == list(ref[f'{tag}{k}.hist'])
+        _assert_state(st, _State(ref, f'{tag}{k}'), 1e-9)
+        assert _rel(dt['glob_sig'].numpy(), ref[f'{tag}{k}.glob_sig']) \
+            <= 1e-9
+    return st
 
 
 def test_rect_mesh_mat_map_fields_bitwise():
@@ -123,26 +163,27 @@ def test_box_mesh_mat_map_fields_bitwise():
 
 
 @pytest.mark.parametrize('fast', [True, False])
-def test_respond_grouped_matches_jax(fast):
+def test_respond_grouped_matches_jax(ref, fast):
     """The grouped return map on random plastic increments: three
     materials (one of them the elastic sentinel) over the inclusion's
-    groups, 1e-12 of each output's scale."""
+    groups, 1e-12 of each output's scale (JAX's from the committed
+    fixture)."""
     N = 16
-    md, mt = _inclusion_meshes(N)
-    dms, tms, CVs = _inclusion_materials()
+    _, mt = _inclusion_meshes(N)
+    _, tms, CVs = _inclusion_materials()
     rng = np.random.default_rng(4)
     u = rng.normal(size=(N * N, 6))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     sig = u * 150. * rng.uniform(0.5, 0.95, (N * N, 1))
     deps = rng.normal(0., 3e-4, (N * N, 6))
+    np.testing.assert_array_equal(sig, ref['rg.sig'])
+    np.testing.assert_array_equal(deps, ref['rg.deps'])
     epl = np.zeros((N * N, 6))
-    out_j = jfek.respond_grouped(md, dms, CVs, jnp.asarray(sig),
-                                 jnp.asarray(epl), jnp.asarray(deps),
-                                 fast=fast, nsub=2)
     out_t = tfek.respond_grouped(mt, tms, CVs, torch.tensor(sig),
                                  torch.tensor(epl), torch.tensor(deps),
                                  fast=fast, nsub=2)
-    assert (np.abs(np.asarray(out_j[2])).sum(-1) > 0).sum() > 20
+    out_j = [ref[f'rg.{fast}.{i}'] for i in range(4)]
+    assert (np.abs(out_j[2]).sum(-1) > 0).sum() > 20
     for a, b in zip(out_t, out_j):
         assert _rel(a.numpy(), b) <= 1e-12
 
@@ -172,29 +213,15 @@ def test_elastic_sentinel_stays_finite_in_float32(fast):
     assert torch.equal(out[3], CV.expand(512, 6, 6))
 
 
-def test_inclusion_load_steps_match_jax():
+def test_inclusion_load_steps_match_jax(ref):
     """bench.py's 3-material inclusion at 16^2: a cold step and three
     warm-started ones (du0/kes0/dst0), 1e-9 on the fields and glob_sig,
-    equal CG histories."""
-    md, mt = _inclusion_meshes(16)
-    dms, tms, CVs = _inclusion_materials()
-    sj = jfek.init_state(md, CVs, dtype=F64)
-    st = tfek.init_state(mt, CVs, dtype=torch.float64)
-    dj = dt = None
-    for _ in range(4):
-        warm_j = {} if dj is None else dict(
-            du0=dj['du'], kes0=dj['kes'], dst0=dj['dstiff'])
-        warm_t = {} if dt is None else dict(
-            du0=dt['du'], kes0=dt['kes'], dst0=dt['dstiff'])
-        sj, dj = jfek.load_step_split(md, sj, dms, CVs, 0.25, n_inner=2,
-                                      **warm_j)
-        st, dt = tfek.load_step_split(mt, st, tms, CVs, 0.25, n_inner=2,
-                                      **warm_t)
-        assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
-        _assert_state(st, sj, 1e-9)
-        assert _rel(dt['glob_sig'].numpy(), dj['glob_sig']) <= 1e-9
+    equal CG histories (JAX's from the committed fixture)."""
+    _, mt = _inclusion_meshes(16)
+    _, tms, CVs = _inclusion_materials()
+    st = _steps_match(ref, 'incl', mt, tms, CVs, (0.25,) * 4)
     # both plastic groups yielded
-    epl = np.abs(np.asarray(sj.epl)).sum(-1)
+    epl = np.abs(st.epl.numpy()).sum(-1)
     ids = _inclusion_map(16).reshape(-1)
     assert (epl[ids == 0] > 0).any() and (epl[ids == 1] > 0).any()
     assert not epl[ids == 2].any()
@@ -214,56 +241,41 @@ def _svc_material():
     return dm, mat, CV, eps
 
 
-def test_inclusion_gated_solve_matches_jax():
+def test_inclusion_gated_solve_matches_jax(ref):
     """``solve_uniaxial`` with tuples and the convergence gate on the
     3-material inclusion (the yield excess normalized per element: sy on
     the plastic groups, the sentinel on the elastic one): fields and the
-    history to 1e-9."""
-    md, mt = _inclusion_meshes(16)
-    dms, tms, CVs = _inclusion_materials()
-    sj, hj = jfek.solve_uniaxial(md, dms, CVs, nsteps=4, n_inner=1,
-                                 dtype=F64, gate=True)
+    history to 1e-9 (JAX's from the committed fixture)."""
+    _, mt = _inclusion_meshes(16)
+    _, tms, CVs = _inclusion_materials()
     st, ht = tfek.solve_uniaxial(mt, tms, CVs, nsteps=4, n_inner=1,
                                  dtype=torch.float64, gate=True)
-    _assert_state(st, sj, 1e-9)
-    for a, b in zip(ht, hj):
+    _assert_state(st, _State(ref, 'gated'), 1e-9)
+    assert len(ht) == len(ref['gated.hist'])
+    for a, b in zip(ht, ref['gated.hist']):
         for x, y in zip(a, b):
             assert _rel(x.numpy(), y) <= 1e-9
 
 
-def test_svc_elastic_groups_match_jax():
+def test_svc_elastic_groups_match_jax(ref):
     """A two-group mesh, the trained SVC in one half and an elastic
     inclusion in the other (an SVC block of odd size): three load steps
-    with their warm starts, 1e-9 and equal CG histories."""
+    with their warm starts, 1e-9 and equal CG histories (JAX's from the
+    committed fixture)."""
     N = 16
-    dm, mat, CV, eps = _svc_material()
+    _, mat, CV, eps = _svc_material()
     m_el = FE.Material(num=2)
     m_el.elasticity(E=1.e3, nu=0.27)
     dm_el = jcon.device_material_from(m_el, dtype=F64)
-    dms, tms = (dm, dm_el), (mat,) + _torch_materials((dm_el,))
+    tms = (mat,) + _torch_materials((dm_el,))
     CVs = (CV, np.asarray(m_el.CV, float))
     mat_map = np.zeros((N, N), dtype=int)
     mat_map[N // 2 + 1:N - 2, 3:N - 4] = 1
-    kw = dict(LX=1., LY=1., uniax='y', eps_tot=eps, mat_map=mat_map)
-    md = jfek.rect_mesh(N, N, dtype=F64, **kw)
-    mt = tfek.rect_mesh(N, N, **T64, **kw)
+    mt = tfek.rect_mesh(N, N, LX=1., LY=1., uniax='y', eps_tot=eps,
+                        mat_map=mat_map, **T64)
     assert mt.groups[0][1] % 2 == 1
-    sj = jfek.init_state(md, CVs, dtype=F64)
-    st = tfek.init_state(mt, CVs, dtype=torch.float64)
-    dj = dt = None
-    for _ in range(3):
-        warm_j = {} if dj is None else dict(
-            du0=dj['du'], kes0=dj['kes'], dst0=dj['dstiff'])
-        warm_t = {} if dt is None else dict(
-            du0=dt['du'], kes0=dt['kes'], dst0=dt['dstiff'])
-        sj, dj = jfek.load_step_split(md, sj, dms, CVs, 1. / 3., n_inner=2,
-                                      **warm_j)
-        st, dt = tfek.load_step_split(mt, st, tms, CVs, 1. / 3., n_inner=2,
-                                      **warm_t)
-        assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
-        _assert_state(st, sj, 1e-9)
-        assert _rel(dt['glob_sig'].numpy(), dj['glob_sig']) <= 1e-9
-    assert np.abs(np.asarray(sj.epl)).max() > 0
+    st = _steps_match(ref, 'svcel', mt, tms, CVs, (1. / 3.,) * 3)
+    assert st.epl.abs().max() > 0
 
 
 def _box_inclusion(N):
@@ -284,41 +296,38 @@ def _box_inclusion(N):
             _torch_materials(dms), (np.asarray(mat.CV), np.asarray(incl.CV)))
 
 
-def test_box_inclusion_solve_matches_jax():
+def test_box_inclusion_solve_matches_jax(ref):
     """The 3-D inclusion at 4^3 (the port's side from
     ``workloads.box_inclusion_case``), four steps of ``solve_uniaxial3``:
-    fields and the glob_sig history to 1e-9, equal CG iteration counts."""
-    md, _, dms, _, CVs = _box_inclusion(4)
+    fields and the glob_sig history to 1e-9, equal CG iteration counts
+    (JAX's from the committed fixture; its mesh and stiffnesses live)."""
+    md, _, _, _, CVs = _box_inclusion(4)
     mt, tms, CVt = workloads.box_inclusion_case(4, torch.float64, 'cpu')
     for a, b in zip(CVs, CVt):
         np.testing.assert_array_equal(a, b)
-    sj, hj = jfe3d.solve_uniaxial3(md, dms, CVs, nsteps=4, n_inner=2)
+    np.testing.assert_array_equal(mt.perm.numpy(), np.asarray(md.perm))
     st, ht = tfe3d.solve_uniaxial3(mt, tms, CVs, nsteps=4, n_inner=2)
-    _assert_state(st, sj, 1e-9)
-    for a, b in zip(ht, hj):
-        assert _rel(a[0].numpy(), b[0]) <= 1e-9
-        assert a[2] == int(b[2])
-    assert np.abs(np.asarray(sj.epl)).max() > 0
+    _assert_state(st, _State(ref, 'box'), 1e-9)
+    assert len(ht) == len(ref['box.iters'])
+    for a, g, n in zip(ht, ref['box.glob_sig'], ref['box.iters']):
+        assert _rel(a[0].numpy(), g) <= 1e-9
+        assert a[2] == int(n)
+    assert np.abs(ref['box.epl']).max() > 0
 
 
-def test_faithful_3d_route_matches_jax():
+def test_faithful_3d_route_matches_jax(ref):
     """``load_step3(fast=False)`` with the trained SVC at 4^3: three steps
-    through the yield onset, fields to 1e-9, equal CG histories."""
-    dm, mat, CV, eps = _svc_material()
-    kw = dict(uniax='z', eps_tot=eps)
-    md = jfe3d.box_mesh(4, 4, 4, dtype=F64, **kw)
-    mt = tfe3d.box_mesh(4, 4, 4, **T64, **kw)
-    sj = jfe3d.init_state3(md, CV, dtype=F64)
+    through the yield onset, fields to 1e-9, equal CG histories (JAX's
+    from the committed fixture)."""
+    _, mat, CV, eps = _svc_material()
+    mt = tfe3d.box_mesh(4, 4, 4, uniax='z', eps_tot=eps, **T64)
     st = tfe3d.init_state3(mt, CV, dtype=torch.float64)
-    dj = dt = None
-    for frac in (0.5, 0.25, 0.25):
-        sj, dj = jfe3d.load_step3(md, sj, dm, CV, frac, n_inner=2,
-                                  fast=False,
-                                  du0=None if dj is None else dj['du'])
+    dt = None
+    for k, frac in enumerate((0.5, 0.25, 0.25)):
         st, dt = tfe3d.load_step3(mt, st, mat, CV, frac, n_inner=2,
                                   fast=False,
                                   du0=None if dt is None else dt['du'])
-        assert dt['cg_iters_hist'] == [int(x) for x in dj['cg_iters_hist']]
-        for f in ('u', 'sig', 'epl', 'eps'):
-            assert _rel(getattr(st, f).numpy(), getattr(sj, f)) <= 1e-9, f
-    assert np.abs(np.asarray(sj.epl)).max() > 0
+        assert dt['cg_iters_hist'] == list(ref[f'faith{k}.hist'])
+        _assert_state(st, _State(ref, f'faith{k}'), 1e-9,
+                      ('u', 'sig', 'epl', 'eps'))
+    assert np.abs(ref['faith2.epl']).max() > 0

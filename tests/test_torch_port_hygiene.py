@@ -370,3 +370,86 @@ def test_parallel_applies_raise_instead_of_falling_back():
         fe3d._k_apply3_raw(sl.md_loc, torch.empty(36, 2, 2, 2, **meta),
                            tuple(torch.empty(3, 3, 3, **meta)
                                  for _ in range(3)))
+
+
+_ELEMENT_PROBE = """
+import os
+import sys
+import tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from pylabfea_tpu_torch.ops import fe3d, stencil, svc_kernels, volume
+from pylabfea_tpu_torch.parallel import distributed, mesh, mesh3d, runs
+from pylabfea_tpu_torch.utils import checkpoint, profiling
+one = mesh.make_mesh(device='cpu')
+assert one == distributed.RankMesh()
+deps = np.full((2, 4, 6), 5e-4)
+deps[1, :, 1] *= -1.
+res = runs.suite(one, torch.device('cpu'), [
+    dict(kind='elem2d', NX=4, NY=4, eps=0.002, dtype='float64', mats='svc',
+         fracs=[0.5], n_inner=1),
+    dict(kind='elem3d', NX=2, NY=2, NZ=2, eps=0.002, dtype='float64',
+         mats='j2', fracs=[0.5], n_inner=1),
+    dict(kind='fit', deps=deps, sig=deps * 2e5, CV=np.eye(6) * 2e5,
+         steps=1, dtype='float64')])
+md3 = fe3d.box_mesh(2, 2, 2, dtype=torch.float64, device='cpu')
+st3 = fe3d.init_state3(md3, np.eye(6), dtype=torch.float64)
+vols = fe3d.field_volumes(md3, st3)
+timer = profiling.StepTimer(device='cpu')
+with tempfile.TemporaryDirectory() as tmp:
+    with timer.step(), profiling.trace(tmp, device='cpu'):
+        checkpoint.save_state(os.path.join(tmp, 's.npz'), st3)
+    back, _ = checkpoint.load_state(os.path.join(tmp, 's.npz'), device='cpu')
+assert torch.equal(back.elstiff, st3.elstiff)
+assert stencil.k_apply.launches == volume.k_apply3.launches == 0
+assert svc_kernels.svc_f_grad.launches == svc_kernels.svc_decision.launches \\
+    == 0
+bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')
+             or m == 'pylabfea_tpu' or m.startswith('pylabfea_tpu.'))
+assert not bad, bad
+print('clean', res[0]['glob_sig'][0][1], res[1]['glob_sig'][0][2],
+      res[2]['sy'], float(vols['seq'].sum()), timer.summary()['steps'])
+"""
+
+
+def test_element_sharding_and_utils_run_on_the_cpu_without_jax_or_launch():
+    """The element-sharded steps, the path-sharded fit, the checkpoint
+    and profiling utilities and ``field_volumes`` on CPU tensors: the
+    plain versions, no kernel launch, no JAX module imported."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', _ELEMENT_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert res.stdout.startswith('clean')
+
+
+def test_element_sharding_and_utils_default_to_the_card(monkeypatch,
+                                                        tmp_path):
+    """Without ``device`` the element meshes, ``load_state``, the profiling
+    utilities and a path-sharded ``fit_plasticity`` on host data ask for
+    the card; where none is visible they raise instead of running on the
+    CPU, which they do only when the caller lists it."""
+    from pylabfea_tpu_torch.parallel import distributed, mesh, mesh3d
+    from pylabfea_tpu_torch.utils import checkpoint, profiling
+    one = distributed.RankMesh()
+    md = fe_kernels.rect_mesh(4, 4, device='cpu')
+    md3 = fe3d.box_mesh(2, 2, 2, device='cpu')
+    path = str(tmp_path / 's.npz')
+    checkpoint.save_state(path, fe3d.init_state3(md3, np.eye(6)))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for call in (lambda: mesh.make_mesh(), lambda: mesh3d.make_mesh3(),
+                 lambda: mesh.shard_mesh_data(md, one),
+                 lambda: mesh3d.shard_mesh_data3(md3, one),
+                 lambda: checkpoint.load_state(path),
+                 lambda: profiling.StepTimer(),
+                 lambda: profiling.trace(str(tmp_path)).__enter__(),
+                 lambda: calibrate.fit_plasticity(
+                     np.ones((1, 4, 6)), np.ones((1, 4, 6)), np.eye(6),
+                     ranks=one)):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
+    assert mesh.shard_mesh_data(md, one, 'cpu').dofs.device.type == 'cpu'
+    assert mesh3d.shard_mesh_data3(md3, one, 'cpu').B.device.type == 'cpu'
+    assert checkpoint.load_state(path, device='cpu')[0].u.device.type \
+        == 'cpu'

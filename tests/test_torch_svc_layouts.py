@@ -10,6 +10,11 @@ G), with the trained fixtures of ``pylabfea_tpu_torch/data`` (made by
 * ``svc_tex_adv``: PCA-whitened ADV_12 descriptors (6 + 10).
 
 Both sides get the same leaves and inputs made with numpy from a seed.
+The yield functions, their gradients and distances, the chunked
+work-hardening map and the plain kernels run live in JAX; the return maps
+and the uniaxial solves are held against JAX's results committed in
+``pylabfea_tpu_torch/data/ref_layouts.npz``
+(``tools/make_torch_ref_fixtures.py layouts``).
 """
 import os
 
@@ -19,7 +24,6 @@ import pytest
 import torch
 
 from pylabfea_tpu.ops import constitutive as jcon
-from pylabfea_tpu.ops import fe_kernels as jfek
 from pylabfea_tpu.ops.pallas_kernels import (svc_decision_pallas,
                                              svc_f_grad_pallas,
                                              svc_f_grad_pallas_mxu)
@@ -35,6 +39,7 @@ torch.set_num_threads(1)
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'pylabfea_tpu_torch', 'data')
+REF = os.path.join(DATA, 'ref_layouts.npz')
 F64 = jnp.float64
 FLAGS = ('is_svc', 'dev_only', 'sdim3')
 
@@ -56,6 +61,13 @@ def _materials(name):
 def _rel(a, b):
     a, b = np.asarray(a), np.asarray(b)
     return np.abs(a - b).max() / max(np.abs(b).max(), 1e-300)
+
+
+@pytest.fixture(scope='module')
+def ref():
+    """JAX's results of ``tools/make_torch_ref_fixtures.py layouts``."""
+    with np.load(REF) as z:
+        return {k: z[k] for k in z.files}
 
 
 def _close(a, b, rtol):
@@ -119,19 +131,22 @@ def _return_map_inputs(mat, n=40, seed=5):
 @pytest.mark.parametrize('fn', ['response_fast', 'response'])
 @pytest.mark.parametrize('name', ['svc_cyl', 'svc_wh', 'svc_tex_gsh3',
                                   'svc_tex_adv'])
-def test_return_maps_match_jax(name, fn):
+def test_return_maps_match_jax(ref, name, fn):
     """The fast and the reference-faithful return map, every output within
-    1e-9 relative, with plastic lanes."""
-    dm, mat, CV, _ = _materials(name)
+    1e-9 relative, with plastic lanes (JAX's from the committed
+    fixture)."""
+    _, mat, CV, _ = _materials(name)
     sig, epl, deps = _return_map_inputs(mat)
+    np.testing.assert_array_equal(np.stack([sig, epl, deps]),
+                                  ref[f'rm.{name}.inputs'])
     extra = (12, 1) if fn == 'response_fast' else ()
-    oj = getattr(jcon, fn)(dm, (jnp.asarray(sig), jnp.asarray(epl)),
-                           jnp.asarray(deps), jnp.asarray(CV), *extra)
+    oj = [ref[f'rm.{name}.{fn}.{i}'] for i in range(4)]
     ot = getattr(tcon, fn)(mat, (torch.tensor(sig), torch.tensor(epl)),
                            torch.tensor(deps), torch.tensor(CV), *extra)
+    assert len(ot) == len(oj)
     for a, b in zip(ot, oj):
         _close(a.numpy(), b, 1e-9)
-    assert (np.abs(np.asarray(oj[2])).sum(-1) > 0).sum() >= 5
+    assert (np.abs(oj[2]).sum(-1) > 0).sum() >= 5
 
 
 def test_work_hardening_chunks_as_jax():
@@ -228,27 +243,27 @@ def _record_cg(monkeypatch, module, hist):
     ('svc_cyl', 8, dict(nsteps=2, n_inner=2, gate=True, nsub=4,
                         commit_faithful=True))],
     ids=['wh-steps', 'cyl-steps', 'cyl-faithful'])
-def test_uniaxial_solves_match_jax(monkeypatch, name, N, kw):
+def test_uniaxial_solves_match_jax(monkeypatch, ref, name, N, kw):
     """The slice end to end: ``solve_uniaxial`` (uniaxial y, eps 0.002) on
     an N x N mesh, three steps of the split load step with the fast return
     map, or two of the gated REF_SOLVE protocol with the faithful tail
     (whose gate does not fire with this material: every step runs its 16
     rounds and warns, in the JAX package as here); every step's glob_sig
-    within 1e-9 relative, the states within 1e-9, identical CG
-    histories."""
-    dm, mat, CV, eps = _materials(name)
-    md = jfek.rect_mesh(N, N, LX=2., LY=2., uniax='y', eps_tot=eps,
-                        dtype=F64)
+    within 1e-9 relative, the states within 1e-9, identical CG histories
+    (JAX's from the committed fixture)."""
+    tag = {16: {'svc_wh': 'wh-steps', 'svc_cyl': 'cyl-steps'},
+           8: {'svc_cyl': 'cyl-faithful'}}[N][name]
+    _, mat, CV, eps = _materials(name)
     mt = tfek.rect_mesh(N, N, LX=2., LY=2., uniax='y', eps_tot=eps,
                         dtype=torch.float64, device='cpu')
-    cg_j, cg_t = [], []
-    _record_cg(monkeypatch, jfek, cg_j)
+    cg_t = []
     _record_cg(monkeypatch, tfek, cg_t)
-    sj, hj = jfek.solve_uniaxial(md, dm, CV, dtype=F64, **kw)
     st, ht = tfek.solve_uniaxial(mt, mat, CV, dtype=torch.float64, **kw)
-    assert cg_t == cg_j and len(cg_t) == kw['nsteps']
-    for a, b in zip(ht, hj):
-        assert _rel(a[0].numpy(), b[0]) <= 1e-9
+    cg_j = [list(ref[f'uni.{tag}.cg{k}']) for k in range(kw['nsteps'])]
+    assert cg_t == cg_j
+    assert len(ht) == len(ref[f'uni.{tag}.glob_sig'])
+    for a, b in zip(ht, ref[f'uni.{tag}.glob_sig']):
+        assert _rel(a[0].numpy(), b) <= 1e-9
     for f in ('u', 'sig', 'epl'):
-        assert _rel(getattr(st, f).numpy(), getattr(sj, f)) <= 1e-9, f
-    assert np.asarray(sj.epl).any()
+        assert _rel(getattr(st, f).numpy(), ref[f'uni.{tag}.{f}']) <= 1e-9, f
+    assert ref[f'uni.{tag}.epl'].any()
