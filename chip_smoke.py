@@ -84,8 +84,8 @@ used.  Phases, each of which must pass:
    14e. f64 card against CPU at small size: ``simulate_paths``, one
    ``step_implicit`` with one forward-mode column, ``fit_svc``'s dual
    variables (1e-9); no CUDA-graph capture of phase 14 may fail;
-15. the host-model bridge (``bridge.py``) on records, the card having no
-   host ``Model``: 15a. ``reduce_svc`` of 14a's SVC at 'auto' (k, the
+15. the host-model bridge (``bridge.py``) on records built from arrays
+   (phase 19 hands it the port's host ``Model``): 15a. ``reduce_svc`` of 14a's SVC at 'auto' (k, the
    relative RKHS error, max |f - f~| on 2^16 probes within abs_tol, the
    compressed locus by 14b's rule), A and D at 2^20 points x k against
    their plain versions; 15b. ``solve_record`` (``solve_on_device``) at
@@ -125,7 +125,26 @@ used.  Phases, each of which must pass:
    W ranks: the 2-D step at 256^2 (f32) and 64^2 (f64), the 3-D step at
    32^3 (f32, f64), the fit on 256 paths x 30 steps (f64, 10 LM steps)
    against world size 1 (f64 1e-9, khard 1e-8; f32 glob_sig 1e-4), every
-   rank launching A or C (budget 60 s).
+   rank launching A or C (budget 60 s);
+19. the host profile (``import pylabfea_tpu_torch as FE``: ``Material``,
+   ``Model``, numpy as in the JAX package) on ``examples/train_hill.py``'s
+   workflow: 19a. ``train_SVC(backend='jax')``, the training data on the
+   host and the fit on the card (score at least 95 %); 19b. the example's
+   12 x 4 laminate with the Hill reference in the ML section, the host
+   ``Model.solve()`` against ``bridge.solve_on_device_adaptive`` (f64,
+   faithful; B) within ``tests/test_bridge.py:283-288``'s bounds, and the
+   ML law's host rows against ``bridge.HostLaw`` on the card in f64
+   (``calc_seq``, ``_yf_rows`` through D, ``_sflow_rows`` within 1e-12;
+   ``_ml_full_yf_rows`` through G within 1e-4 MPa); 19c. the example's
+   model meshed 768 x 256 on the host, ``read_model`` against
+   ``grid_record`` array for array, ``solve_on_device`` (f32, 'auto', 2
+   steps; A, B, D); 19d. ``calc_properties_on_device`` of the trained
+   ``Material`` at 16^2 (A, B, G), every strength within 5 % of the Hill
+   locus; 19e. the UMAT export and import, ``save_model`` / ``load_model``
+   (bitwise) and ``compress_svc(tol=1e-3)`` on the card (its RKHS bound
+   on 2^16 probes); no ``jax``, ``sklearn`` or ``pylabfea_tpu`` module
+   may be imported; then B, A, D and G at phase 19's shapes against their
+   plain versions.
 
 Every launch count of a path is set to 0 just before that path runs and
 read just after (also by feature count, ``launches_by_nfeat``).  The last
@@ -137,7 +156,8 @@ A, B, D, E and G on the bridge's path as ``name[bridge]``, with their
 launches in 15b-15d; A, B and D on the 2048^2 row as ``name[2048]``, B and
 A on 17a's strip as ``name[strip]``, C on 17b's slab as
 ``k_apply3[slab]``, A on 18a's element share as ``svc_f_grad[elem]``, C on
-18b's x-plane block as ``k_apply3[elem]``), and ``{"ok": true,
+18b's x-plane block as ``k_apply3[elem]``, B, A, D and G on phase 19's
+path as ``name[host]``, with their launches in 19b-19d), and ``{"ok": true,
 "device": {...}}``.
 Any failure raises and exits non-zero without those lines.
 """
@@ -3297,6 +3317,403 @@ def phase_elem(device, card, main_run):
     return dict(elem2d=a, elem3d=b, ranks=c)
 
 
+# -----------------------------------------------------------------
+# the host profile (phase 19)
+# -----------------------------------------------------------------
+#: 19c's grid: the example's three 2 x 2 sections at 256 columns a section
+NX_19C, NY_19C = 768, 256
+#: 19c's load steps: 2 of ``solve_on_device``'s default 20, the cut that
+#: brings the run toward its 900 s line (20 steps took 46.0 s, 2.30 s a
+#: step, on an NVIDIA H100 80GB HBM3 at 700 W; phase 19 180.9 s)
+NSTEPS_19C = 2
+
+
+def host_model(FE, mats, NX, NY):
+    """``examples/train_hill.py``'s model (``:29-37``): three 2 x 2
+    sections with ``mats``, left and bottom supports, the right edge
+    force-free, the top displaced by 0.002 LY, meshed NX x NY."""
+    fem = FE.Model(dim=2, planestress=False)
+    fem.geom([2., 2., 2.], LY=2.)
+    fem.assign(mats)
+    fem.bcleft(0.)
+    fem.bcbot(0.)
+    fem.bcright(0., 'force')
+    fem.bctop(0.002 * fem.leny, 'disp')
+    fem.mesh(NX=NX, NY=NY)
+    return fem
+
+
+def phase_host_train(FE, card):
+    """19a: ``examples/train_hill.py``'s training (``:15-24``) through the
+    port's ``Material``: the Hill reference (E 200e3, nu 0.3, sy 50, rv
+    [1.2, 1, 0.8, 1, 1, 1]) and ``train_SVC(C=4, gamma=1.5, Nlc=300,
+    Nseq=25, Fe=0.3, Ce=0.95, backend='jax')``: the training data on the
+    host, the fit on the card (f32, ``ml_train.fit_svc``). The score must
+    reach 95 %."""
+    from pylabfea_tpu_torch import ml_train
+    mat_h = FE.Material(name='Hill-reference')
+    mat_h.elasticity(E=200.e3, nu=0.3)
+    mat_h.plasticity(sy=50., rv=[1.2, 1., 0.8, 1., 1., 1.], sdim=6)
+    mat_ml = FE.Material(name='Hill-ML')
+    fits = []
+    orig = ml_train.fit_svc
+
+    def timed_fit(X, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(X, *a, **kw)
+        fits.append((np.shape(X)[0], time.perf_counter() - t0))
+        return out
+
+    ml_train.fit_svc = timed_fit
+    try:
+        t0 = time.perf_counter()
+        score, _ = mat_ml.train_SVC(C=4, gamma=1.5, mat_ref=mat_h, Nlc=300,
+                                    Nseq=25, Fe=0.3, Ce=0.95, backend='jax')
+        dt = time.perf_counter() - t0
+    finally:
+        ml_train.fit_svc = orig
+    mat_ml.dev_only = False
+    nsv = mat_ml._svc.support_vectors.shape[0]
+    ok = score >= 95. and len(fits) == 1 and 0 < nsv
+    log(f'[19a train_SVC] backend=jax on the card: {fits[0][0]} training '
+        f'points, {nsv} SVs, score {score:.2f} % (gate 95 %), {dt:.3f} s '
+        f'(the fit {fits[0][1]:.3f} s, the rest the host\'s training data) '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('train_SVC(backend=jax): score below 95 % or no card fit')
+    mat_el = FE.Material(name='elastic inclusion')
+    mat_el.elasticity(E=3. * 200.e3, nu=0.3)
+    return mat_h, mat_ml, mat_el, dt
+
+
+def host_states(N, sy, seed):
+    """N stresses at 0.3-2 sy along random directions and small plastic
+    strains."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(N, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    return (u * sy * rng.uniform(0.3, 2.0, (N, 1)),
+            rng.normal(0., 1e-3, (N, 6)))
+
+
+def phase_host_vs_card(FE, device, mats, card):
+    """19b: (i) the example's model with the Hill reference in place of
+    the ML section solved by the port's host ``Model.solve()`` (f64)
+    against ``bridge.solve_on_device_adaptive(fast=False, float64)`` on a
+    copy, within ``tests/test_bridge.py:283-288``'s bounds (B must
+    launch); (ii) the ML law's host rows (numpy) against ``HostLaw`` on
+    the card in f64 with 19a's SVC: ``calc_seq``, ``_yf_rows`` (kernel D),
+    ``_sflow_rows`` on 1024 states within 1e-12 relative, and
+    ``_ml_full_yf_rows`` on 256 of them along two load directions
+    (kernel G, 2000 marching steps) within 1e-4 MPa."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    mat_h, mat_ml, mat_el = mats
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    host = host_model(FE, [mat_h, mat_el, mat_h], 12, 4)
+    host.solve()
+    host.calc_global()
+    t1 = time.perf_counter()
+    dev = host_model(FE, [mat_h, mat_el, mat_h], 12, 4)
+    sync(device)
+    reset_counts()
+    bridge.solve_on_device_adaptive(dev, dtype=f64, fast=False)
+    sync(device)
+    t2 = time.perf_counter()
+    la = launches_now()
+    epl = lambda m: np.array([e.epl for e in m.element])  # noqa: E731
+    du = float(np.abs(dev.u - host.u).max())
+    dg = np.abs(dev.glob['sig'] - host.glob['sig']) \
+        - 1e-6 * np.abs(host.glob['sig'])
+    ds = np.abs(dev.sgl - host.sgl) - 1e-5 * np.abs(host.sgl)
+    de = float(np.abs(epl(dev) - epl(host)).max())
+    ok = (dev.sgl.shape == host.sgl.shape and du <= 1e-7
+          and dg.max() <= 1e-4 and ds.max() <= 1e-3 and de <= 1e-7
+          and la['k_apply'] > 0 and host.glob['epl'][1] > 0.)
+    log(f'[19b host vs card] 12x4 laminate [Hill, elastic, Hill]: host '
+        f'Model.solve {t1 - t0:.3f} s ({len(host.sgl)} increments), card '
+        f'solve_on_device_adaptive(fast=False, f64) {t2 - t1:.3f} s; '
+        f'max|du| {du:.3e} (1e-7), glob sig excess over rtol 1e-6 '
+        f'{dg.max():.3e} (atol 1e-4), sgl excess over rtol 1e-5 '
+        f'{ds.max():.3e} (atol 1e-3), max|depl| {de:.3e} (1e-7); '
+        f'sigma_yy {host.glob["sig"][1]:.4f}, peeq_yy '
+        f'{host.glob["epl"][1]:.3e}; launches {la} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('host Model.solve and the card adaptive solve disagree, or B '
+             'was not launched')
+    mrec = convert.material_record(mat_ml)
+    law = bridge.HostLaw.of(mrec, convert.material_from_record(
+        mrec, dtype=f64, device=device))
+    sig, epl_np = host_states(1024, mat_ml.sy, 19)
+    t = lambda a: torch.as_tensor(a, dtype=f64, device=device)  # noqa
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = dict(seq=(law.seq(t(sig)), mat_ml.calc_seq(sig)),
+                yf=(law.yf(t(sig), t(epl_np)), mat_ml._yf_rows(sig, epl_np)),
+                sflow=(law.sflow(t(epl_np)), mat_ml._sflow_rows(epl_np)))
+    rel = {k: _rel(a.cpu().numpy(), b) for k, (a, b) in rows.items()}
+    lds = (np.eye(6)[5], np.eye(6)[0])
+    dist = []
+    for ld in lds:
+        d = law.ml_full_yf(t(sig[:256]), t(epl_np[:256]), ld).cpu().numpy()
+        dh = mat_ml._ml_full_yf_rows(sig[:256], epl_np[:256], ld=ld)
+        dist.append(float(np.abs(d - dh).max()))
+    sync(device)
+    lb = launches_now()
+    ok = (max(rel.values()) <= 1e-12 and max(dist) <= 1e-4
+          and lb['svc_decision'] > 0 and lb['svc_yf_root'] > 0)
+    log(f'[19b host vs card] the ML law ({mat_ml._svc.dual_coef.size} SVs),'
+        f' host numpy rows against HostLaw on the card, f64: relative '
+        + ', '.join(f'{k} {v:.3e}' for k, v in rel.items())
+        + f' (bound 1e-12) on 1024 states; ml_full_yf along e6 and e1 on '
+        f'256: max|diff| {dist[0]:.3e}, {dist[1]:.3e} MPa (bound 1e-4); '
+        f'{time.perf_counter() - t0:.3f} s; launches {lb} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('the host ML rows and HostLaw on the card disagree, or D / G '
+             'were not launched')
+    counts = {k: la[k] + lb[k] for k in la}
+    return host, dict(launches=counts, mrec=mrec, ld=lds[0])
+
+
+def phase_host_read(FE, device, mats, card):
+    """19c: the example's model with the ML section (``dev_only`` False)
+    meshed ``NX_19C`` x ``NY_19C`` on the host; ``bridge.read_model``
+    (without compression) against the record ``grid_record`` builds from
+    the same material records, ids and BCs, array for array; then
+    ``solve_on_device(nsteps=NSTEPS_19C, n_inner=2, float32,
+    compress='auto')`` timed (the compression through the ``Material``'s
+    cache): A, B and D must launch, the fields finite."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    mat_h, mat_ml, mat_el = mats
+    t0 = time.perf_counter()
+    fem = host_model(FE, [mat_h, mat_el, mat_ml], NX_19C, NY_19C)
+    t1 = time.perf_counter()
+    rec = bridge.read_model(fem)
+    t2 = time.perf_counter()
+    ids = np.repeat(np.arange(3), NX_19C // 3 * NY_19C)
+    ref = bridge.grid_record(
+        NX_19C, NY_19C, [convert.material_record(m) for m in
+                         (mat_h, mat_el, mat_ml)],
+        [m.CV for m in (mat_h, mat_el, mat_ml)], LX=6., LY=2., ids=ids,
+        bct=(0., 0.004), ubctop=(False, True))
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, list):
+            return len(a) == len(b) and all(map(same, a, b))
+        a, b = np.asarray(a), np.asarray(b)
+        return a.shape == b.shape and a.dtype == b.dtype \
+            and bool(np.array_equal(a, b, equal_nan=a.dtype.kind == 'f'))
+
+    diff = sorted(k for k in set(rec) | set(ref)
+                  if k not in rec or k not in ref or not same(rec[k], ref[k]))
+    log(f'[19c read_model] {NX_19C}x{NY_19C} ({fem.Nel} elements): '
+        f'Model.mesh {t1 - t0:.3f} s, read_model {t2 - t1:.3f} s; record '
+        f'against grid_record: {len(rec)} keys, differing {diff} '
+        f'{"ok" if not diff else "FAIL"}  [{card}]')
+    if diff:
+        fail(f'read_model of the host Model differs from grid_record: {diff}')
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    bridge.solve_on_device(fem, nsteps=NSTEPS_19C, n_inner=2,
+                           dtype=torch.float32, compress='auto')
+    sync(device)
+    dt = time.perf_counter() - t0
+    la = launches_now()
+    fin = bool(np.isfinite(fem.u).all() and np.isfinite(fem.sgl).all()
+               and all(np.isfinite(e.sig).all() for e in fem.element))
+    k = mat_ml._svc_reduced[1].support_vectors.shape[0]
+    ok = fin and all(la[n] > 0 for n in ('svc_f_grad', 'k_apply',
+                                         'svc_decision'))
+    log(f'[19c solve_on_device] {NX_19C}x{NY_19C} [Hill, elastic, ML], '
+        f"compress='auto' ({mat_ml._svc.dual_coef.size} -> {k} centers, "
+        f'relative RKHS error {mat_ml.svc_compress_rel:.3e}), f32, '
+        f'{NSTEPS_19C} steps x (n_inner 2): {dt:.3f} s ({dt / NSTEPS_19C:.4f}'
+        f' s a step); sigma_yy {fem.glob["sig"][1]:.4f} (no gate: n_inner 2 '
+        f'is not converged by design); finite {fin}; launches {la} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('solve_on_device of the host Model: non-finite fields or '
+             'kernels A/B/D not launched')
+    return dict(launches=la, seconds=dt, k=k,
+                red=mat_ml._svc_reduced[1])
+
+
+#: 19d's grid: ``calc_properties_on_device``'s default 16^2.  A specimen is
+#: one homogeneous material, so the grid barely moves a strength (15d runs
+#: 256^2); at 64^2 19d took 42.3-44.6 s, host-bound in MG-CG (1788 launches
+#: of B a step), on an NVIDIA H100 80GB HBM3 at 700 W
+NEL_19D = 16
+
+
+def phase_host_props(FE, device, mats, card, Nel=NEL_19D):
+    """19d: ``bridge.calc_properties_on_device(mat_ml, Nel, eps=0.001,
+    nsteps=10)`` (15d's protocol, the SVC uncompressed) into the port's
+    ``Material``: every strength within 5 % of the Hill reference's locus
+    (propJ2 along the elastic stress direction of the load case, prop
+    along the last stress, 15d's rule); A, B and G must launch."""
+    from pylabfea_tpu_torch import bridge, convert
+    mat_h, mat_ml, _ = mats
+    CVps = convert.elastic_cv(200.e3, 0.3, planestress=True)
+
+    def hill_at(d):
+        d = np.asarray(d, float)
+        return mat_h.sy * FE.sig_eq_j2(d) / mat_h.calc_seq(d)
+
+    sync(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    bridge.calc_properties_on_device(mat_ml, Nel=Nel, eps=0.001, nsteps=10)
+    sync(device)
+    dt = time.perf_counter() - t0
+    la = launches_now()
+    rows, ok = [], True
+    for sel in bridge.LOAD_CASES:
+        on = hill_at(onset_direction(sel, CVps))
+        fin = hill_at(mat_ml.sigeps[sel]['sig'][-1])
+        e1 = abs(mat_ml.propJ2[sel]['ys'] - on) / on
+        e2 = abs(mat_ml.prop[sel]['ys'] - fin) / fin
+        ok &= e1 <= 0.05 and e2 <= 0.05
+        rows.append(f'{sel} propJ2 ys {mat_ml.propJ2[sel]["ys"]:.4f} (Hill '
+                    f'{on:.4f}, {e1:.2%}), prop ys '
+                    f'{mat_ml.prop[sel]["ys"]:.4f} (Hill {fin:.4f}, '
+                    f'{e2:.2%})')
+    ok &= all(la[k] > 0 for k in ('svc_f_grad', 'k_apply', 'svc_yf_root'))
+    log(f'[19d calc_properties] Material of 19a ({mat_ml._svc.dual_coef.size}'
+        f' SVs, uncompressed) {Nel}x{Nel} f32, eps 0.001, 4 cases x 11 '
+        f'steps: {dt:.3f} s; ' + '; '.join(rows) + f'; launches {la} '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('calc_properties_on_device of the host Material: strengths off '
+             'the Hill locus or kernels A/B/G not launched')
+    return dict(launches=la, seconds=dt)
+
+
+def phase_host_round_trips(FE, device, mats, host, card):
+    """19e: ``export_MLparam`` / ``from_MLparam`` of 19a's SVC (decision
+    values bitwise equal on the host); ``save_model`` / ``load_model`` of
+    19b's host model (every field bitwise equal); last, since it replaces
+    the SVC, ``Material.compress_svc(tol=1e-3)`` on the card: the
+    relative RKHS error it returns at most ``tol`` and max |f - f~| on
+    15a's 2^16 probes at most rel |w|_H (1 + 1e-6)."""
+    import tempfile
+    import torch
+    from pylabfea_tpu_torch.ops import svc_kernels as sk
+    from pylabfea_tpu_torch.utils import checkpoint
+    mat_h, mat_ml, mat_el = mats
+    sig, epl_np = host_states(512, mat_ml.sy, 23)
+    with tempfile.TemporaryDirectory() as tmp:
+        mat_ml.export_MLparam('chip_smoke', file='hill_ml', path=tmp)
+        mat_in = FE.Material(name='imported')
+        mat_in.from_MLparam('hill_ml', path=tmp)
+        ok_ml = bool(np.array_equal(mat_in.calc_yf(sig, epl_np),
+                                    mat_ml.calc_yf(sig, epl_np)))
+        checkpoint.save_model(os.path.join(tmp, 'host.npz'), host,
+                              meta={'phase': '19e'})
+        back = host_model(FE, [mat_h, mat_el, mat_h], 12, 4)
+        meta = checkpoint.load_model(os.path.join(tmp, 'host.npz'), back)
+    fields = ('u', 'f', 'sgl', 'egl', 'epgl', 'bct_mem', 'bcr_mem')
+    ok_mod = meta == {'phase': '19e'} and all(
+        np.array_equal(getattr(back, k), getattr(host, k)) for k in fields) \
+        and all(np.array_equal(getattr(a, k), getattr(b, k))
+                for a, b in zip(back.element, host.element)
+                for k in ('sig', 'eps', 'epl', 'elstiff'))
+    full = mat_ml._svc
+    t0 = time.perf_counter()
+    rel = mat_ml.compress_svc(tol=1e-3)
+    sync(device)
+    dt = time.perf_counter() - t0
+    red = mat_ml._svc
+    f64 = dict(dtype=torch.float64, device=device)
+    sv, dc = (torch.as_tensor(a, **f64) for a in (full.support_vectors,
+                                                  full.dual_coef))
+    svr, dcr = (torch.as_tensor(a, **f64) for a in (red.support_vectors,
+                                                    red.dual_coef))
+    g = float(full.gamma)
+    wnorm = float(torch.sqrt(dc @ (torch.exp(-g * sk.rbf_d2(sv, sv)) @ dc)))
+    rng = np.random.default_rng(11)
+    u = rng.normal(size=(2 ** 16, 6))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    x = torch.as_tensor(u * rng.uniform(0.3, 2.0, (2 ** 16, 1)), **f64)
+    err = 0.
+    for i in range(0, x.shape[0], 2 ** 13):
+        f = sk.svc_f_grad_plain(x[i:i + 2 ** 13], sv, dc, g,
+                                float(full.intercept), with_grad=False)[0]
+        fr = sk.svc_f_grad_plain(x[i:i + 2 ** 13], svr, dcr, g,
+                                 float(red.intercept), with_grad=False)[0]
+        err = max(err, float((f - fr).abs().max()))
+    ok_c = rel <= 1e-3 and err <= rel * wnorm * (1. + 1e-6) \
+        and mat_ml.svm_yf is None
+    ok = ok_ml and ok_mod and ok_c
+    log(f'[19e round trips] export_MLparam / from_MLparam: decision values '
+        f'on 512 states bitwise equal {ok_ml}; save_model / load_model of '
+        f'19b\'s model: every field bitwise equal {ok_mod}; '
+        f'compress_svc(tol=1e-3) on the card: {full.dual_coef.size} -> '
+        f'{red.dual_coef.size} centers, relative RKHS error {rel:.3e} '
+        f'(bound 1e-3), {dt:.3f} s; max|f - f~| on 2^16 probes {err:.3e} '
+        f'(bound rel |w|_H = {rel * wnorm:.3e}) '
+        f'{"ok" if ok else "FAIL"}  [{card}]')
+    if not ok:
+        fail('a host-profile round trip is not exact, or compress_svc '
+             'breaks its RKHS bound')
+
+
+def phase_host(device, card):
+    """Phase 19: the port's host profile (``import pylabfea_tpu_torch as
+    FE``) driving ``examples/train_hill.py``'s workflow (19a-19e), then
+    the check that no JAX, scikit-learn or JAX-package module was
+    imported.  Returns launches by kernel (19b-19d) and 19c's compressed
+    SVC."""
+    import pylabfea_tpu_torch as FE
+    t0 = time.perf_counter()
+    mat_h, mat_ml, mat_el, _ = phase_host_train(FE, card)
+    mats = (mat_h, mat_ml, mat_el)
+    host, b = phase_host_vs_card(FE, device, mats, card)
+    c = phase_host_read(FE, device, mats, card)
+    d = phase_host_props(FE, device, mats, card)
+    phase_host_round_trips(FE, device, mats, host, card)
+    bad = sorted(m for m in sys.modules
+                 if m.split('.')[0] in ('jax', 'jaxlib', 'sklearn',
+                                        'pylabfea_tpu'))
+    log(f'[19 host profile] phase 19 {time.perf_counter() - t0:.1f} s '
+        f'(budget 90 s); jax / sklearn / pylabfea_tpu modules imported: '
+        f'{bad or "none"}  [{card}]')
+    if bad:
+        fail(f'the host profile imported {bad}')
+    launches = {k: b['launches'][k] + c['launches'][k] + d['launches'][k]
+                for k in b['launches']}
+    return dict(launches=launches, red=c['red'], mrec=b['mrec'], ld=b['ld'],
+                seconds=time.perf_counter() - t0)
+
+
+def host_checks(device, run, card):
+    """Phase 19's kernels at its shapes against their plain versions: B at
+    19c's grid, A and D at 19c's ML section (NX_19C / 3 x NY_19C points)
+    on its compressed SVC, G in 19b's fixed-direction root find (256
+    states, 19a's SVC uncompressed, 2000 marching steps)."""
+    import torch
+    from pylabfea_tpu_torch import bridge, convert
+    red, mrec = run['red'], run['mrec']
+    pred = dict(sv=red.support_vectors, dc=red.dual_coef, gamma=red.gamma,
+                rho=red.intercept)
+    n = NX_19C // 3 * NY_19C
+    mats = {dt: convert.material_from_record(mrec, dtype=dt, device=device)
+            for dt in (torch.float32, torch.float64)}
+    return dict(
+        k_apply=[check_kapply(device, NX_19C, NY_19C, 20, card)],
+        svc_f_grad=[check_svc(device, n, pred, 10, card)],
+        svc_decision=[check_svc_mm(device, n, pred, 10, card, 'D')],
+        svc_yf_root=[check_fixed_root(
+            device, lambda dt: bridge.HostLaw.of(mrec, mats[dt]), 256,
+            run['ld'], card)])
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3409,6 +3826,8 @@ def main():
     log(f'[16-17] phases 16 and 17 {time.perf_counter() - t16:.1f} s '
         f'(their budget 150 s)  [{card}]')
     elem = phase_elem(device, card, main_run)
+    hostp = phase_host(device, card)
+    hostp['checks'] = host_checks(device, hostp, card)
 
     def entry(name, src, replaces, launches, checks):
         # no single PyTorch call computes any of these functions
@@ -3497,6 +3916,12 @@ def main():
               elem['elem2d']['launches']['svc_f_grad'], ea),
         entry('k_apply3[elem]', 'kapply3d.cu', 'volume_pallas.py:175',
               elem['elem3d']['launches']['k_apply3'], dd['check_slab'])]
+    # the host profile's path (phase 19): B, A, D and G at its shapes
+    for name, chk in hostp['checks'].items():
+        letter, src, repl = sources.get(
+            name, ('B', 'kapply2d.cu', 'stencil_pallas.py:138'))
+        kernels.append(entry(f'{name}[host]', src, repl,
+                             hostp['launches'][name], chk))
     top = sorted(CLOCK['phases'].items(), key=lambda kv: -kv[1])
     log(f'[clock] chip_smoke {time.perf_counter() - CLOCK["start"]:.1f} s '
         f'(limit 1200 s); by phase, longest first: '

@@ -1,5 +1,6 @@
-"""Bridge between a host ``Model`` / ``Material`` (the JAX package's host
-profile, or any object with its attributes) and the port's device solver
+"""Bridge between a host ``Model`` / ``Material`` (the port's own
+``femodel.Model`` / ``materials.Material``, the JAX package's host
+profile, or any object with their attributes) and the port's device solver
 (the counterpart of ``pylabfea_tpu.bridge``).
 
 The host objects are touched only at the two ends:
@@ -10,8 +11,8 @@ The host objects are touched only at the two ends:
   per-element material ids, each material's record and elastic
   stiffness, and for a solved model the resume state).  ``grid_record``
   builds the same record from arrays, ``save_record`` / ``load_record``
-  carry it through ``.npz``, so a machine without the host package runs
-  the same solvers;
+  carry it through ``.npz``, so the same solvers run without a host
+  ``Model``;
 * **solving** (``solve_record``, ``solve_record_adaptive``,
   ``properties_record``): everything between runs on tensors on the
   device, the host methods the JAX bridge calls (``calc_seq``,
@@ -39,6 +40,7 @@ import torch
 
 from pylabfea_tpu_torch import convert
 from pylabfea_tpu_torch.config import resolve_device, yf_tolerance
+from pylabfea_tpu_torch.femodel import _halve_increment
 from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import fe_kernels as fek
 from pylabfea_tpu_torch.ops import jtensors as jt
@@ -48,17 +50,6 @@ from pylabfea_tpu_torch.ops import svc_kernels as sk
 #: marching steps a direction of the host's fixed-direction root find
 #: (``Material._ml_full_yf_rows``); ``ml_yf_dist`` keeps kernel G's 400
 HOST_MAXMARCH = 2000
-
-
-def _halve_increment(d, full, target, applied):
-    """Halve the load increment ``d``, clipped (sign-symmetrically) to the
-    still-unapplied BC ``target - applied`` and to at least 5 % of the
-    full increment ``full`` (the host ``femodel._halve_increment``)."""
-    d = np.asarray(d, dtype=float)
-    s = np.where(np.asarray(full) >= 0., 1., -1.)
-    capped = np.minimum(s * (np.asarray(target) - np.asarray(applied)),
-                        s * d * 0.5)
-    return s * np.maximum(s * 0.05 * np.asarray(full), capped)
 
 
 # -----------------------------------------------------------------

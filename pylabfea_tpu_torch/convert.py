@@ -18,8 +18,8 @@ carries a ``calibrate`` parameter dict and ``material_tree_from_params``
 the output of a ``femu`` material builder (one material or a tuple).
 Every function builds on the card unless ``device`` names another device.
 
-A host ``Material`` of the JAX package's host profile (or any object with
-its attributes) crosses as a *material record*, a dict of numpy values
+A host ``Material`` (the port's ``materials.Material``, the JAX package's,
+or any object with its attributes) crosses as a *material record*, a dict of numpy values
 that ``material_record`` reads from the object's attributes, without
 importing its package: the parameters of ``device_material_from``
 (the JAX ``constitutive.device_material_from``) and those of the host

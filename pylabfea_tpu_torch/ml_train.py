@@ -143,3 +143,36 @@ def train_svc(X_train, y_train, sy, scale_seq=None, C=10., gamma=1.,
     pred = torch.where(f > 0., 1., -1.).cpu().double().numpy()
     score = 100. * float(np.mean(pred == np.asarray(y_train, float)))
     return mat, score, params
+
+
+def fit_svc_jax(X, y, C=10., gamma=1., iters=3000, sv_tol=1e-6,
+                dtype=DTYPE_DEVICE, device=None):
+    """``fit_svc`` under the JAX package's name and return type (the card's
+    trainer; 'jax' names it in the JAX API): (SVCParams, dual variables)."""
+    from pylabfea_tpu_torch.ops.svc import SVCParams
+    p, a = fit_svc(X, y, C=C, gamma=gamma, iters=iters, sv_tol=sv_tol,
+                   dtype=dtype, device=device)
+    return SVCParams(support_vectors=p['sv'], dual_coef=p['dc'],
+                     intercept=p['rho'], gamma=p['gamma']), a
+
+
+def train_svc_jax(material, X_train, y_train, C=10., gamma=1., iters=3000,
+                  dtype=DTYPE_DEVICE, device=None, score=True):
+    """Fit the SVC on the card (or ``device``) and install it as a host
+    ``Material``'s ML yield function, as the JAX ``train_svc_jax`` does:
+    ``_svc`` the SVCParams, ``svm_yf`` None, ``ML_yf``, ``gam_yf``,
+    ``C_yf``.  Returns the training accuracy in percent by the host's
+    numpy decision function (None with ``score=False``: the host pass
+    costs about as much as the fit on the card at 15,000 points)."""
+    from pylabfea_tpu_torch.ops.svc import decision_function_np
+    params, _ = fit_svc_jax(X_train, y_train, C=C, gamma=gamma, iters=iters,
+                            dtype=dtype, device=device)
+    material._svc = params
+    material.svm_yf = None
+    material.ML_yf = True
+    material.gam_yf = float(gamma)
+    material.C_yf = float(C)
+    if not score:
+        return None
+    pred = np.where(decision_function_np(params, X_train) > 0, 1., -1.)
+    return 100. * float(np.mean(pred == np.asarray(y_train)))

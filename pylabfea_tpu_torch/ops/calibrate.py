@@ -27,7 +27,6 @@ statistics on the gathered paths, the strain scale, the stress scale, the
 weights' mean, the cost and the normal equations J'J, J'r), so every rank
 takes the same Levenberg-Marquardt steps to the same parameters.
 """
-import random
 import time
 
 import numpy as np
@@ -641,31 +640,6 @@ def resample_paths(records, nsteps=30, eps_max=None, cluster=2.0,
             torch.as_tensor(sig_r, dtype=dtype, device=device))
 
 
-def get_elastic_coefficients(eps, sig):
-    """Least-squares fit of the symmetric 6x6 stiffness to stress-strain
-    pairs over its 21 independent coefficients (the JAX package's
-    ``dataio.get_elastic_coefficients`` with its default method, in
-    numpy): row r of C gives one equation per pair, sig_r = C[r, :] eps.
-    The pairs enter in a random order, as there."""
-    iu = np.triu_indices(6)
-    colmap = np.zeros((6, 6), dtype=int)
-    colmap[iu] = np.arange(21)
-    colmap[(iu[1], iu[0])] = colmap[iu]
-    pairs = list(zip(eps, sig))
-    pairs = random.sample(pairs, len(pairs))
-    A = np.zeros((len(pairs) * 6, 21))
-    b = np.zeros(len(pairs) * 6)
-    for p, (strains, stresses) in enumerate(pairs):
-        for r in range(6):
-            A[6 * p + r, colmap[r]] += np.asarray(strains, dtype=float)
-            b[6 * p + r] = stresses[r]
-    C_flat, *_ = np.linalg.lstsq(A, b, rcond=None)
-    C = np.zeros((6, 6))
-    C[iu] = C_flat
-    C[(iu[1], iu[0])] = C_flat
-    return C
-
-
 def fit_from_data(db, CV=None, nsteps=30, eps_max=None,
                   shear_convention='engineering', deviatoric=True,
                   device=None, **fit_kw):
@@ -699,6 +673,7 @@ def fit_from_data(db, CV=None, nsteps=30, eps_max=None,
         if keep.sum() < 12:
             raise ValueError('too few pre-yield samples to fit the elastic '
                              'stiffness: pass CV explicitly')
+        from pylabfea_tpu_torch.dataio import get_elastic_coefficients
         CV = get_elastic_coefficients(eps_c[keep], _np(sig)[keep])
     params, info = fit_plasticity(deps, sig, _np(CV), deviatoric=deviatoric,
                                   **fit_kw)

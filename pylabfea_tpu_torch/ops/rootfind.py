@@ -1,4 +1,7 @@
-"""Batched Brent zeroin on tensors (the JAX ``rootfind.brent_jax``).
+"""Batched Brent zeroin on tensors (the JAX ``rootfind.brent_jax``), and
+its numpy copy ``brent_vec`` for the host profile (the JAX package's
+``rootfind.brent_vec``: scipy's ``brentq`` update and stopping rules, so
+given identical function values it reproduces scipy's iterates exactly).
 
 The reference return map locates the ML yield surface with scipy's
 ``brentq`` at ``xtol=1e-5``; the JAX twin reproduces scipy's update and
@@ -43,6 +46,93 @@ STATE = ('done', 'ok', 'root', 'xpre', 'fpre', 'xcur', 'fcur', 'xblk',
 
 def _safe(x):
     return torch.where(x == 0., 1., x)
+
+
+def brent_vec(f, xa, xb, xtol=1.e-5, rtol=_RTOL, maxiter=100):
+    """Batched Brent zeroin.  Each lane i solves f_i(x)=0 in [xa_i, xb_i].
+
+    Returns (root, converged).  Lanes whose bracket does not straddle a sign
+    change are returned unconverged with root = xb.
+    """
+    xa = np.array(xa, dtype=float)
+    xb = np.array(xb, dtype=float)
+    xpre, xcur = xa.copy(), xb.copy()
+    fpre = np.asarray(f(xpre), dtype=float).copy()
+    fcur = np.asarray(f(xcur), dtype=float).copy()
+
+    root = xcur.copy()
+    done = np.zeros(xa.shape, dtype=bool)
+    ok = np.zeros(xa.shape, dtype=bool)
+    # endpoint roots
+    hit_pre = fpre == 0.
+    root[hit_pre] = xpre[hit_pre]
+    done |= hit_pre
+    ok |= hit_pre
+    hit_cur = (~done) & (fcur == 0.)
+    root[hit_cur] = xcur[hit_cur]
+    done |= hit_cur
+    ok |= hit_cur
+    bad = (~done) & (fpre * fcur > 0.)
+    done |= bad  # no sign change: give up on these lanes
+
+    xblk = np.zeros_like(xpre)
+    fblk = np.zeros_like(fpre)
+    spre = np.zeros_like(xpre)
+    scur = np.zeros_like(xpre)
+
+    for _ in range(maxiter):
+        act = ~done
+        if not act.any():
+            break
+        bracket = act & (fpre * fcur < 0.)
+        xblk[bracket] = xpre[bracket]
+        fblk[bracket] = fpre[bracket]
+        spre[bracket] = xcur[bracket] - xpre[bracket]
+        scur[bracket] = spre[bracket]
+
+        swap = act & (np.abs(fblk) < np.abs(fcur))
+        # rotate (pre <- cur, cur <- blk, blk <- pre) as in zeroin
+        xpre_s, fpre_s = xcur[swap], fcur[swap]
+        xpre[swap], fpre[swap] = xcur[swap], fcur[swap]
+        xcur[swap], fcur[swap] = xblk[swap], fblk[swap]
+        xblk[swap], fblk[swap] = xpre_s, fpre_s
+
+        delta = (xtol + rtol * np.abs(xcur)) / 2.
+        sbis = (xblk - xcur) / 2.
+        conv = act & ((fcur == 0.) | (np.abs(sbis) < delta))
+        root[conv] = xcur[conv]
+        ok |= conv
+        done |= conv
+        act = ~done
+        if not act.any():
+            break
+
+        interp = act & (np.abs(spre) > delta) & (np.abs(fcur) < np.abs(fpre))
+        with np.errstate(divide='ignore', invalid='ignore'):
+            # secant where only two points, inverse quadratic otherwise
+            sec = -fcur * (xcur - xpre) / (fcur - fpre)
+            dpre = (fpre - fcur) / (xpre - xcur)
+            dblk = (fblk - fcur) / (xblk - xcur)
+            iq = -fcur * (fblk * dblk - fpre * dpre) / (dblk * dpre * (fblk - fpre))
+        stry = np.where(xpre == xblk, sec, iq)
+        accept = interp & (2. * np.abs(stry) <
+                           np.minimum(np.abs(spre), 3. * np.abs(sbis) - delta))
+        spre_new = np.where(accept, scur, sbis)
+        scur_new = np.where(accept, stry, sbis)
+        spre[act] = spre_new[act]
+        scur[act] = scur_new[act]
+
+        xpre[act] = xcur[act]
+        fpre[act] = fcur[act]
+        step = np.where(np.abs(scur) > delta, scur,
+                        np.where(sbis > 0, delta, -delta))
+        xcur[act] = xcur[act] + step[act]
+        # evaluate f on all lanes (inactive lanes ignored) — f must be total
+        fnew = np.asarray(f(xcur), dtype=float)
+        fcur[act] = fnew[act]
+
+    root[~ok & ~done] = xcur[~ok & ~done]
+    return root, ok
 
 
 def brent_step_plain(state, xtol, rtol):

@@ -1,7 +1,10 @@
 """RBF-SVC decision function, gradient and Hessian on tensors (the plain
 versions of ``pylabfea_tpu.ops.svc`` ``decision_function_jax`` /
-``decision_gradient_jax`` / ``decision_hessian``), and the reduced-set
-compression ``reduce_svc``.
+``decision_gradient_jax`` / ``decision_hessian``), their numpy copies for
+the host profile (``decision_function_np`` / ``decision_gradient_np`` /
+``decision_hessian_np``, the JAX package's numpy ``decision_function`` /
+``decision_gradient`` / ``decision_hessian`` with the same arithmetic),
+and the reduced-set compression ``reduce_svc``.
 
 A trained SVC is its support vectors ``sv`` (nsv, F), dual coefficients
 ``dc`` (nsv,), intercept ``rho`` and kernel width ``gamma``.  The return
@@ -26,6 +29,53 @@ class SVCParams:
     dual_coef: np.ndarray        # (nsv,)
     intercept: float
     gamma: float
+
+    @classmethod
+    def from_sklearn(cls, clf):
+        """The parameters of a fitted ``sklearn.svm.SVC``."""
+        return cls(support_vectors=np.array(clf.support_vectors_),
+                   dual_coef=np.array(clf.dual_coef_[0]),
+                   intercept=float(clf.intercept_[0]),
+                   gamma=float(clf._gamma if hasattr(clf, "_gamma")
+                               else clf.gamma))
+
+
+def decision_function_np(params: SVCParams, x):
+    """Host decision function f(x) = sum_i dc_i exp(-gamma ||x - sv_i||^2)
+    + rho of x (N, F) in numpy float64, with direct squared distances (as
+    libsvm accumulates them).  Returns (N,)."""
+    x = np.asarray(x, dtype=float)
+    sv = params.support_vectors
+    diff = x[:, None, :] - sv[None, :, :]
+    d2 = np.sum(diff * diff, axis=2)
+    k = np.exp(-params.gamma * d2)
+    return k @ params.dual_coef + params.intercept
+
+
+def decision_gradient_np(params: SVCParams, x):
+    """Host gradient of the decision function w.r.t. x, (N, F):
+    dK/dx = -2 gamma (x - sv) K summed with the dual coefficients."""
+    x = np.asarray(x, dtype=float)
+    sv = params.support_vectors
+    diff = x[:, None, :] - sv[None, :, :]
+    k = np.exp(-params.gamma * np.sum(diff * diff, axis=2))
+    w = params.dual_coef[None, :] * k
+    return -2. * params.gamma * np.einsum('ns,nsd->nd', w, diff)
+
+
+def decision_hessian_np(params: SVCParams, x):
+    """Host Hessian of the decision function w.r.t. x, (N, F, F)."""
+    x = np.asarray(x, dtype=float)
+    sv = params.support_vectors
+    diff = sv[None, :, :] - x[:, None, :]
+    k = np.exp(-params.gamma * np.sum(diff * diff, axis=2))
+    w = params.dual_coef[None, :] * k
+    g = params.gamma
+    h = 4. * g * g * np.einsum('ns,nsi,nsj->nij', w, diff, diff)
+    trace_term = 2. * g * np.sum(w, axis=1)
+    idx = np.arange(x.shape[1])
+    h[:, idx, idx] -= trace_term[:, None]
+    return h
 
 
 def decision_function(sv, dc, rho, gamma, x):

@@ -251,7 +251,7 @@ def test_fit_plasticity_matches_jax(ref):
 def test_fit_from_data_tensor_convention_matches_jax(ref):
     """A records dict in the tensor shear convention: the shear strains
     doubled, the elastic stiffness refitted from the pre-yield samples
-    (the port's copy of ``get_elastic_coefficients``) and a short
+    (the port's ``dataio.get_elastic_coefficients``) and a short
     deviatoric fit, as JAX does them (JAX's fit from the committed
     fixture)."""
     deps = _paths(6, 16, seed=5, step=1.2e-3, first=2e-4)

@@ -878,3 +878,57 @@ def test_element_sharded_steps_on_the_card_match_the_cpu(cuda, case):
     assert card['cg_iters_hist'] == cpu['cg_iters_hist']
     need = 'svc_f_grad' if case['kind'] == 'elem2d' else 'k_apply3'
     assert card['launches'][need] > 0 and cpu['launches'][need] == 0
+
+
+# -----------------------------------------------------------------
+# the host profile feeding the card
+# -----------------------------------------------------------------
+def test_train_hill_workflow_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """``examples/train_hill.py``'s workflow at a tiny size through the
+    port's ``Material`` / ``Model``: ``train_SVC(backend='jax')`` on the
+    card and on the CPU (both float64: duals within 1e-9 of their scale,
+    the same support vectors), the host ``Model.solve()``, then
+    ``bridge.solve_on_device_adaptive`` (faithful, f64) of the 6 x 2
+    laminate on the card (B, D, E and G launched) against the CPU within
+    1e-9."""
+    import functools
+    import pylabfea_tpu_torch as FE
+    from pylabfea_tpu_torch import bridge, ml_train
+    monkeypatch.setattr(ml_train, 'train_svc_jax', functools.partial(
+        ml_train.train_svc_jax, dtype=torch.float64))
+    mat_h = FE.Material(name='Hill-reference')
+    mat_h.elasticity(E=200.e3, nu=0.3)
+    mat_h.plasticity(sy=50., rv=[1.2, 1., 0.8, 1., 1., 1.], sdim=6)
+    trained = {}
+    for dev in (cuda, 'cpu'):
+        m = FE.Material(name='Hill-ML')
+        m.train_SVC(C=4, gamma=1.5, mat_ref=mat_h, Nlc=12, Nseq=4, Fe=0.3,
+                    Ce=0.95, backend='jax', device=dev)
+        m.dev_only = False
+        trained[str(dev)] = m
+    mc, mh = trained[str(cuda)], trained['cpu']
+    np.testing.assert_array_equal(mc._svc.support_vectors,
+                                  mh._svc.support_vectors)
+    assert np.abs(mc._svc.dual_coef - mh._svc.dual_coef).max() \
+        <= 1e-9 * np.abs(mh._svc.dual_coef).max()
+    mat_el = FE.Material(name='elastic inclusion')
+    mat_el.elasticity(E=600.e3, nu=0.3)
+    host = chip_smoke.host_model(FE, [mat_h, mat_el, mh], 6, 2)
+    host.solve()
+    out = {}
+    for dev in (cuda, 'cpu'):
+        fem = chip_smoke.host_model(FE, [mat_h, mat_el, mh], 6, 2)
+        n0 = {c.__name__: c.launches for c in chip_smoke.counters()}
+        bridge.solve_on_device_adaptive(fem, dtype=torch.float64,
+                                        fast=False, device=dev)
+        out[str(dev)] = (fem, {c.__name__: c.launches - n0[c.__name__]
+                               for c in chip_smoke.counters()})
+    (fc, lc), (fh, lh) = out[str(cuda)], out['cpu']
+    for k in ('u', 'f', 'sgl'):
+        a, b = getattr(fc, k), getattr(fh, k)
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), k
+    assert len(fh.sgl) == len(host.sgl)
+    assert all(lc[k] > 0 for k in ('k_apply', 'svc_decision',
+                                   'svc_f_grad_mm', 'svc_yf_root'))
+    assert not any(lh.values())

@@ -453,3 +453,138 @@ def test_element_sharding_and_utils_default_to_the_card(monkeypatch,
     assert mesh3d.shard_mesh_data3(md3, one, 'cpu').B.device.type == 'cpu'
     assert checkpoint.load_state(path, device='cpu')[0].u.device.type \
         == 'cpu'
+
+
+_HOST_PROBE = """
+import importlib
+import importlib.abc
+import sys
+BLOCKED = ('jax', 'jaxlib', 'pylabfea_tpu', 'sklearn', 'matplotlib',
+           'tkinter')
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split('.')[0] in BLOCKED:
+            raise ImportError(f'No module named {name!r} (refused)')
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import pylabfea_tpu_torch as FE
+for m in ('core', 'core.tensors', 'training', 'materials', 'femodel',
+          'dataio', 'gui', 'bridge', 'ml_train', 'utils.checkpoint',
+          'utils.native', 'ops.svc', 'ops.rootfind'):
+    importlib.import_module('pylabfea_tpu_torch.' + m)
+mat_h = FE.Material(name='Hill-reference')
+mat_h.elasticity(E=200.e3, nu=0.3)
+mat_h.plasticity(sy=50., rv=[1.2, 1., 0.8, 1., 1., 1.], sdim=6)
+mat_ml = FE.Material(name='Hill-ML')
+score, _ = mat_ml.train_SVC(C=4, gamma=1.5, mat_ref=mat_h, Nlc=12, Nseq=4,
+                            Fe=0.3, Ce=0.95, backend='jax', device='cpu')
+mat_ml.dev_only = False
+try:
+    FE.Material().train_SVC(mat_ref=mat_h, Nlc=4, Nseq=2)
+    refused = False
+except ImportError as err:
+    refused = 'refused' in str(err)
+mat_el = FE.Material(name='elastic inclusion')
+mat_el.elasticity(E=600.e3, nu=0.3)
+
+
+def model():
+    fem = FE.Model(dim=2, planestress=False)
+    fem.geom([2., 2., 2.], LY=2.)
+    fem.assign([mat_h, mat_el, mat_ml])
+    fem.bcleft(0.)
+    fem.bcbot(0.)
+    fem.bcright(0., 'force')
+    fem.bctop(0.002 * fem.leny, 'disp')
+    fem.mesh(NX=6, NY=2)
+    return fem
+
+
+host = model()
+host.solve()
+host.calc_global()
+dev = model()
+FE.bridge.solve_on_device_adaptive(dev, device='cpu')
+assert len(dev.sgl) == len(host.sgl)
+assert np.abs(dev.u - host.u).max() < 1e-7
+bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)
+assert not bad, bad
+print('clean', score, refused, host.glob['sig'][1], dev.glob['sig'][1])
+"""
+
+
+def test_host_profile_runs_where_jax_and_sklearn_are_missing():
+    """The card's machine simulated: an import hook refuses ``jax``,
+    ``pylabfea_tpu`` (the JAX package, not the port), ``sklearn``,
+    ``matplotlib`` and ``tkinter``.  Every new module imports, and
+    ``examples/train_hill.py``'s workflow runs at a tiny size on the CPU:
+    ``train_SVC(backend='jax', device='cpu')`` on 12 load cases x 4
+    levels, the 6 x 2 laminate's ``Model.solve()``, then
+    ``bridge.solve_on_device_adaptive`` (faithful, f64) with the host's
+    increments and its displacements within 1e-7; the default
+    ``backend='sklearn'`` raises the refused import instead of switching
+    to the card's trainer."""
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, '-c', _HOST_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    out = res.stdout.splitlines()[-1].split()
+    assert out[0] == 'clean' and float(out[1]) >= 95. and out[2] == 'True'
+
+
+def test_host_profile_asks_for_the_card(monkeypatch):
+    """Without ``device`` the host profile's hooks into the port (the
+    ``backend='jax'`` fit and grid search, ``compress_svc``,
+    ``Data.fit_material``) ask for the card and raise where none is
+    visible; no module of the port imports scikit-learn, matplotlib or
+    tkinter at module level."""
+    import pylabfea_tpu_torch as FE
+    from pylabfea_tpu_torch.ops import svc as tsvc
+    ref = FE.Material()
+    ref.elasticity(E=200.e3, nu=0.3)
+    ref.plasticity(sy=50., sdim=6)
+    mat = FE.Material()
+    mat.elasticity(CV=ref.CV)
+    mat.plasticity(sy=50., sdim=6)
+    x, y = mat.create_sig_data(N=6, mat_ref=ref, Nseq=2)
+    mat.train_SVC(C=4, gamma=1.5, mat_ref=ref, Nlc=6, Nseq=2,
+                  backend='jax', device='cpu')
+    assert isinstance(mat._svc, tsvc.SVCParams)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    for call in (lambda: mat.train_SVC(C=4, gamma=1.5, mat_ref=ref, Nlc=6,
+                                       Nseq=2, backend='jax'),
+                 lambda: mat.setup_yf_SVM(x, y, backend='jax'),
+                 lambda: mat.setup_yf_SVM_6D(x, y, backend='jax',
+                                             gridsearch=True, cvals=[1.],
+                                             gvals=[1.]),
+                 lambda: mat.compress_svc(nsv=4)):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            call()
+    db = FE.Data.__new__(FE.Data)
+    db.mat_data = {'Name': 'db'}
+    db.lc_data = {'a': {'Stress': np.ones((5, 6)),
+                        'Strain_Total': np.cumsum(np.ones((5, 6)), 0)}}
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        db.fit_material(shear_convention='engineering')
+    lazy = ('sklearn', 'matplotlib', 'tkinter')
+    for dirpath, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            path = os.path.join(dirpath, name)
+            for node in ast.parse(open(path).read(), path).body:
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    mods = [node.module or '']
+                else:
+                    continue
+                assert not any(m.split('.')[0] in lazy for m in mods), \
+                    f'{path} imports {mods} at module level'

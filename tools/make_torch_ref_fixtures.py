@@ -25,7 +25,11 @@ same.  Groups:
   and its solves under both multigrid smoothers;
 * ``element``: ``tests/test_torch_element_sharded.py``'s single-device
   references: the flat 2-D SVC and inclusion steps, the 8^3 J2 step and
-  the unsharded fit of 16 paths.
+  the unsharded fit of 16 paths;
+* ``host``: ``tests/test_torch_host_ml.py``'s host solve, the JAX host
+  profile's ``Model.solve()`` of ``tests/test_ml.py``'s shear model (6 x
+  3) with the scikit-learn SVC of ``data/bridge_ml_shear.npz`` (its
+  fields, the element states and the global history).
 """
 import os
 import sys
@@ -557,8 +561,63 @@ def element():
     _save('element', out)
 
 
+# -----------------------------------------------------------------
+# host
+# -----------------------------------------------------------------
+def ml_shear_material(FE, SVCParams):
+    """``tests/test_ml.py``'s trained ML-Hill-6D material, its SVC read
+    from ``data/bridge_ml_shear.npz`` (no training)."""
+    z = np.load(os.path.join(DATA, 'bridge_ml_shear.npz'))
+    m = FE.Material(name='Hill-ML')
+    m.elasticity(E=float(z['m0.E']), nu=float(z['m0.nu']))
+    m.plasticity(sy=float(z['m0.sy']), sdim=6)
+    m.ML_yf, m.Ndof, m.dev_only = True, 6, bool(z['m0.dev_only'])
+    m.scale_seq = float(z['m0.scale_seq'])
+    m.gam_yf = float(z['m0.gamma'])
+    m._svc = SVCParams(z['m0.sv'], z['m0.dc'], float(z['m0.rho']),
+                       float(z['m0.gamma']))
+    return m
+
+
+def ml_shear_model(FE, mat):
+    """``tests/test_ml.py``'s ``test_ml_shear`` model: 6 x 3 plane stress,
+    the top sheared by 0.006 LY, the bottom fixed."""
+    fem = FE.Model(dim=2, planestress=True)
+    fem.geom([2], LY=2.)
+    fem.assign([mat])
+    fem.bcbot(0., bctype='disp', bcdir='y')
+    fem.bcbot(0., bctype='disp', bcdir='x')
+    fem.bcleft(0., bctype='force')
+    fem.bcright(0., bctype='force')
+    fem.bctop(0.006 * fem.leny, bctype='disp', bcdir='x')
+    fem.bctop(0., bctype='disp', bcdir='y')
+    fem.mesh(NX=6, NY=3)
+    return fem
+
+
+def host_fields(fem):
+    """The fields of a solved host ``Model``: u, f, the global history and
+    values, the element states."""
+    out = {k: np.asarray(getattr(fem, k), float)
+           for k in ('u', 'f', 'sgl', 'egl', 'epgl')}
+    out.update({f'glob.{k}': np.asarray(fem.glob[k], float)
+                for k in ('sig', 'eps', 'epl')})
+    out.update({f'el.{k}': np.array([getattr(e, k) for e in fem.element])
+                for k in ('sig', 'eps', 'epl')})
+    return out
+
+
+def host():
+    from pylabfea_tpu.ops.svc import SVCParams
+    fem = ml_shear_model(FE, ml_shear_material(FE, SVCParams))
+    fem.solve()
+    fem.calc_global()
+    _save('host', {f'ml_shear.{k}': v for k, v in host_fields(fem).items()})
+
+
 GROUPS = dict(fe3d=fe3d, multimat=multimat, layouts=layouts,
-              calibrate=calibrate, jax_args=jax_args, element=element)
+              calibrate=calibrate, jax_args=jax_args, element=element,
+              host=host)
 
 if __name__ == '__main__':
     for name in sys.argv[1:] or list(GROUPS):
