@@ -29,6 +29,7 @@ from pylabfea_tpu_torch.config import yf_tolerance
 from pylabfea_tpu_torch.ops import graphs
 from pylabfea_tpu_torch.ops import jtensors as jt
 from pylabfea_tpu_torch.ops import svc_kernels as sk
+from pylabfea_tpu_torch.utils import profiling
 
 #: scale on the cutting-plane projection's exit tolerance (1.0 = the
 #: reference's yf_tolerance band), as in the JAX module
@@ -546,9 +547,12 @@ def response_fast(m: DeviceMaterial, state, deps, CV, maxiter=12, nsub=1,
             'the second derivative of the decision function (hessian) '
             'inside the kernels, which take no derivative; derivatives are '
             'taken of analytic materials only')
-    if fixed_trip and not m.is_svc:
-        return _FIXED_TRIP(m, state, deps, CV, maxiter, nsub)
-    return _response_fast(m, state, deps, CV, maxiter, nsub, fixed_trip)
+    profiling.count('return_map_calls')
+    with profiling.span('return_map', outermost=True):
+        if fixed_trip and not m.is_svc:
+            return _FIXED_TRIP(m, state, deps, CV, maxiter, nsub)
+        return _response_fast(m, state, deps, CV, maxiter, nsub,
+                              fixed_trip)
 
 
 def _response_fast(m: DeviceMaterial, state, deps, CV, maxiter, nsub,
@@ -589,23 +593,26 @@ def _response_fast(m: DeviceMaterial, state, deps, CV, maxiter, nsub,
         it = 0
         # host read of the active-lane flag once per Newton trip (the JAX
         # while_loop decides on the device); none in the fixed-trip form
-        while it < maxiter and (fixed_trip or bool(
-                (plastic & (torch.abs(f) > toler)).any())):
-            ca = a @ CVT
-            denom = torch.maximum(torch.sum(ca * a, dim=-1) + kh, cv_floor)
-            act = plastic if fixed_trip else \
-                plastic & (torch.abs(f) > toler)
-            lam = torch.where(act, f / denom, 0.)
-            dsig_norm = torch.abs(lam) * torch.sqrt(torch.sum(ca * ca,
-                                                              dim=-1))
-            scale = torch.where(dsig_norm > cap, cap / torch.where(
-                dsig_norm == 0., 1., dsig_norm), 1.)
-            lam = lam * scale
-            sig = sig - lam[:, None] * ca
-            depl = depl + lam[:, None] * a
-            f, a, kh = yf_and_fgrad(m, sig, jt.eps_eq(epl0 + depl),
-                                    epl0 + depl)
-            it += 1
+        with profiling.span('newton'):
+            while it < maxiter and (fixed_trip or profiling.host_read(
+                    (plastic & (torch.abs(f) > toler)).any(), 'newton')):
+                ca = a @ CVT
+                denom = torch.maximum(torch.sum(ca * a, dim=-1) + kh,
+                                      cv_floor)
+                act = plastic if fixed_trip else \
+                    plastic & (torch.abs(f) > toler)
+                lam = torch.where(act, f / denom, 0.)
+                dsig_norm = torch.abs(lam) * torch.sqrt(
+                    torch.sum(ca * ca, dim=-1))
+                scale = torch.where(dsig_norm > cap, cap / torch.where(
+                    dsig_norm == 0., 1., dsig_norm), 1.)
+                lam = lam * scale
+                sig = sig - lam[:, None] * ca
+                depl = depl + lam[:, None] * a
+                f, a, kh = yf_and_fgrad(m, sig, jt.eps_eq(epl0 + depl),
+                                        epl0 + depl)
+                it += 1
+        profiling.count('newton_trips', it)
         sig = torch.where(plastic[:, None], sig, sig_tr)
         depl = torch.where(plastic[:, None], depl, depl_in)
         if not m.is_svc:

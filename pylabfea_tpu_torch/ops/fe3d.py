@@ -42,6 +42,7 @@ from pylabfea_tpu_torch.ops.fe_kernels import _axpy, _dot, _norm, \
 from pylabfea_tpu_torch.ops.multigrid import _restrict_mat
 from pylabfea_tpu_torch.ops.volume import CORNERS3 as _CORNERS3
 from pylabfea_tpu_torch.ops.volume import hex_B as _hex_B
+from pylabfea_tpu_torch.utils import profiling
 
 
 def _hex_B_modes(lx, ly, lz):
@@ -354,13 +355,15 @@ def mesh_chain3(md: MeshData3D, min_size=4):
     (kept in ``md.cache``)."""
     key = ('chain', min_size)
     if key not in md.cache:
-        chain = [md]
-        while True:
-            NX, NY, NZ = chain[-1].grid[:3]
-            if (NX % 2 or NY % 2 or NZ % 2 or NX // 2 < min_size
-                    or NY // 2 < min_size or NZ // 2 < min_size):
-                break
-            chain.append(coarsen_mesh3(chain[-1]))
+        profiling.count('mesh_chain_builds')
+        with profiling.span('mesh_chain'):
+            chain = [md]
+            while True:
+                NX, NY, NZ = chain[-1].grid[:3]
+                if (NX % 2 or NY % 2 or NZ % 2 or NX // 2 < min_size
+                        or NY // 2 < min_size or NZ // 2 < min_size):
+                    break
+                chain.append(coarsen_mesh3(chain[-1]))
         md.cache[key] = tuple(chain)
     return md.cache[key]
 
@@ -422,6 +425,7 @@ class MGLevel3:
 COARSE_DENSE_MAX3 = 1100
 
 
+@profiling.spanned('coarse_inverse')
 def _dense_coarse_inv3(level: MGLevel3):
     """Dense SPD pseudo-inverse of the coarsest-level operator (identity
     rows on fixed dofs): equilibrated eigendecomposition with
@@ -478,10 +482,12 @@ def _make_level3(md: MeshData3D, Cp, lmax=None):
     return MGLevel3(md, Cp, diag, fixT, lmax)
 
 
+@profiling.spanned('hierarchy')
 def build_hierarchy3(md: MeshData3D, elstiff, min_size=4, lmax_from=None):
     """Level list (fine -> coarse) for the current tangent field.
     ``lmax_from`` reuses the per-level lambda_max of an earlier hierarchy
     on the same mesh (see ``_make_level3``)."""
+    profiling.count('hierarchy_builds')
     chain = mesh_chain3(md, min_size)
     levels = []
     Cp = elstiff_vols(md, elstiff)
@@ -564,6 +570,7 @@ def v_cycle3(levels, b, lvl=0, nu=2):
     return _smooth3(level, x, b, nu)
 
 
+@profiling.spanned('cg')
 def mg_cg_solve3(levels, b, x0, tol=1.e-8, maxiter=200, nu=2,
                  Cp_apply=None):
     """CG with a V-cycle preconditioner on volume tuples.
@@ -583,11 +590,11 @@ def mg_cg_solve3(levels, b, x0, tol=1.e-8, maxiter=200, nu=2,
 
     Ax0 = apply_fn(x0)
     r = tuple(torch.where(f, 0., bi - ai) for f, bi, ai in zip(fix, b, Ax0))
-    bnorm = max(float(_norm(b)), 1e-30)
+    bnorm = max(profiling.host_read(_norm(b), 'cg'), 1e-30)
     b_f32 = r[0].dtype == torch.float32
     x, p, rz_prev = x0, None, None
     it, nstall = 0, 0
-    rn = best = float(_norm(r))
+    rn = best = profiling.host_read(_norm(r), 'cg')
     while rn > tol * bnorm and it < maxiter and nstall < 4:
         z = v_cycle3(levels, r, nu=nu)
         rz = _dot(r, z)
@@ -598,7 +605,7 @@ def mg_cg_solve3(levels, b, x0, tol=1.e-8, maxiter=200, nu=2,
         r = tuple(torch.where(f, 0., ri - alpha * ai)
                   for f, ri, ai in zip(fix, r, Ap))
         # host read of the residual norm once per iteration (the exit test)
-        rn = float(_norm(r))
+        rn = profiling.host_read(_norm(r), 'cg')
         if b_f32:
             if rn < 0.95 * best:
                 nstall = 0
@@ -607,6 +614,8 @@ def mg_cg_solve3(levels, b, x0, tol=1.e-8, maxiter=200, nu=2,
         best = min(best, rn)
         rz_prev = rz
         it += 1
+    profiling.count('cg_solves')
+    profiling.count('cg_iters', it)
     return x, rn / bnorm, it
 
 
@@ -641,6 +650,7 @@ def init_state3(md: MeshData3D, CV, dtype=DTYPE_DEVICE):
 respond_grouped3 = respond_grouped
 
 
+@profiling.spanned('load_step')
 def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
                n_inner=2, cg_tol=None, cg_maxiter=100, fast=True, nsub=4,
                du0=None, rebuild_mid=True, cg_tol_inner=None):
@@ -657,6 +667,7 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
     f64); the committed increment comes from the final solve at
     ``cg_tol``.  ``du0`` warm-starts the first solve.  Returns (new state,
     diag) with the JAX ``diag`` keys."""
+    profiling.count('load_steps')
     f64 = state.u.dtype == torch.float64
     if cg_tol is None:
         cg_tol = 1.e-11 if f64 else 1.e-6
@@ -697,6 +708,7 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
     outs = []
     tols = [cg_tol_inner] * n_inner + [cg_tol]
     for k, tol in enumerate(tols):
+        profiling.count('rounds')
         if k == 1 and rebuild_mid:
             levels = build_hierarchy3(md, elstiff, lmax_from=levels)
         elstiff, out = inner(levels, elstiff, du, tol)
@@ -716,6 +728,7 @@ def load_step3(md: MeshData3D, state: SolverState3, mat, CV, load_frac,
     return new, diag
 
 
+@profiling.spanned('solve')
 def solve_uniaxial3(md: MeshData3D, mat, CV, nsteps=10, n_inner=2,
                     dtype=None, nsub=4, cg_maxiter=100):
     """``nsteps`` equal load fractions up to the mesh's unit-load BC

@@ -40,6 +40,7 @@ from pylabfea_tpu_torch.config import DTYPE_DEVICE, resolve_device, \
     yf_tolerance
 from pylabfea_tpu_torch.ops import constitutive as con
 from pylabfea_tpu_torch.ops import stencil as st
+from pylabfea_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -415,6 +416,7 @@ def k_diag(md: MeshData, Ke):
     return torch.where(md.fixed, 1., d)
 
 
+@profiling.spanned('cg')
 def cg_solve(apply_fn, b, x0, diag, tol=1.e-8, maxiter=2000):
     """Jacobi-preconditioned CG on flat vectors (the JAX ``cg_solve``).
 
@@ -428,11 +430,12 @@ def cg_solve(apply_fn, b, x0, diag, tol=1.e-8, maxiter=2000):
     z = minv * r
     p = z
     rz = torch.sum(r * z)
-    bnorm = max(float(torch.sqrt(torch.sum(b * b))), 1e-30)
+    bnorm = max(profiling.host_read(torch.sqrt(torch.sum(b * b)), 'cg'),
+                1e-30)
     b_f32 = b.dtype == torch.float32
     x = x0
     it, nstall = 0, 0
-    rn = best = float(torch.sqrt(torch.sum(r * r)))
+    rn = best = profiling.host_read(torch.sqrt(torch.sum(r * r)), 'cg')
     while rn > tol * bnorm and it < maxiter and nstall < 4:
         Ap = apply_fn(p)
         alpha = rz / torch.sum(p * Ap)
@@ -441,7 +444,7 @@ def cg_solve(apply_fn, b, x0, diag, tol=1.e-8, maxiter=2000):
         z = minv * r
         rz_new = torch.sum(r * z)
         p = (rz_new / rz) * p + z
-        rn = float(torch.sqrt(torch.sum(r * r)))
+        rn = profiling.host_read(torch.sqrt(torch.sum(r * r)), 'cg')
         if b_f32:
             if rn < 0.95 * best:
                 nstall = 0
@@ -450,6 +453,8 @@ def cg_solve(apply_fn, b, x0, diag, tol=1.e-8, maxiter=2000):
         best = min(best, rn)
         rz = rz_new
         it += 1
+    profiling.count('cg_solves')
+    profiling.count('cg_iters', it)
     return x, rn / bnorm, it
 
 
@@ -531,6 +536,7 @@ def element_deps(md: MeshData, du):
     return torch.stack(planes, -1).reshape(md.nel, 6)
 
 
+@profiling.spanned('return_map')
 def respond_grouped(md, mat, CV, sig, epl, deps, fast=True, maxiter=12,
                     nsub=1):
     """Batched return map: one chunked ``response_fast`` or, with
@@ -596,10 +602,12 @@ def init_state(md: MeshData, CV, dtype=DTYPE_DEVICE):
                        elstiff=els)
 
 
+@profiling.spanned('hierarchy')
 def _hier_kes(md: MeshData, elstiff):
     """Per-level stiffness planes (+ dense bottom inverse) of the
     multigrid hierarchy for a tangent field."""
     from pylabfea_tpu_torch.ops import multigrid as mg
+    profiling.count('hierarchy_builds')
     return mg.hierarchy_kes(mg.build_hierarchy(md, elstiff, attach_inv=False))
 
 
@@ -607,7 +615,9 @@ def _mg_solve(md: MeshData, kes, bc_val, force, cg_tol, cg_maxiter, x0):
     """Multigrid-preconditioned CG on K du = force with prescribed ``bc_val``
     on fixed dofs, started from ``x0``.  Returns (du, rel. residual, iters)."""
     from pylabfea_tpu_torch.ops import multigrid as mg
-    levels = mg.levels_from_kes(md, kes)
+    with profiling.span('hierarchy'):
+        profiling.count('hierarchy_builds')
+        levels = mg.levels_from_kes(md, kes)
     fixT = _split(md.fixed)
     bcT = _split(bc_val)
     du_bc = tuple(torch.where(f, b, 0.) for f, b in zip(fixT, bcT))
@@ -706,6 +716,7 @@ def _gate_scale(md: MeshData, mat):
     return scale
 
 
+@profiling.spanned('load_step')
 def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
                     n_inner=2, cg_tol=None, cg_maxiter=100, fast=True,
                     nsub=4, du0=None, gate=False, max_inner=15, kes0=None,
@@ -741,6 +752,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     committed state is the faithful integrator's equilibrium; with
     ``commit_f64`` the float64 commit is faithful too.  Returns (new
     state, diag) with the JAX ``diag`` keys."""
+    profiling.count('load_steps')
     bc_val = md.fixed_val * load_frac
     force = md.force * load_frac
     elstiff = state.elstiff
@@ -766,6 +778,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     i = 0
     total_count = count + (max_inner if faithful_tail else 0)
     while i < total_count:
+        profiling.count('rounds')
         if md.grid is None:
             # flat meshes: Jacobi-CG warm-started from the last increment
             du, cg_res, cg_it = solve_linear(md, elstiff, bc_val, force, tol,
@@ -793,9 +806,10 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             fast and not tail, nsub)
         # host read of the tangent change once per round: it decides the
         # next hierarchy rebuild, the warm start and the gate
-        dst = float(dst_t)
+        dst = profiling.host_read(dst_t, 'dst')
         if tail or (gate and i >= min(n_inner, count - 1)):
-            fmax = float(rank_max(md, torch.max(fy / _gate_scale(md, mat))))
+            fmax = profiling.host_read(
+                rank_max(md, torch.max(fy / _gate_scale(md, mat))), 'gate')
             dst_ok = (dst <= dst_exit) if strict_abs else (
                 dst <= 0.1 * dst_exit or (held and dst <= dst_exit))
             if fmax <= yf_tolerance * 1.0001 and dst_ok:
@@ -815,7 +829,8 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
             tail, held = True, False
         i += 1
     if not converged and (gate or tail):
-        fmax = float(rank_max(md, torch.max(fy / _gate_scale(md, mat))))
+        fmax = profiling.host_read(
+            rank_max(md, torch.max(fy / _gate_scale(md, mat))), 'gate')
         if fmax > yf_tolerance * 1.0001:
             warnings.warn(
                 f'load_step_split: no convergence of the plasticity '
@@ -838,6 +853,7 @@ def load_step_split(md: MeshData, state: SolverState, mat, CV, load_frac,
     return new, diag
 
 
+@profiling.spanned('solve')
 def solve_uniaxial(md: MeshData, mat, CV, nsteps=20, n_inner=3,
                    dtype=DTYPE_DEVICE, cg_tol=None, cg_maxiter=2000,
                    fast=True, nsub=4, split=True, gate=False, n_refine=0,

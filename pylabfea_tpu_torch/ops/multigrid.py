@@ -18,6 +18,7 @@ import torch
 
 from pylabfea_tpu_torch.ops import fe_kernels as fek
 from pylabfea_tpu_torch.ops import stencil as st
+from pylabfea_tpu_torch.utils import profiling
 
 #: exact dense bottom solve when the coarsest level has at most this many
 #: dofs (min_size=8 -> 162)
@@ -50,12 +51,15 @@ def mesh_chain(md: fek.MeshData, min_size=8):
     (kept in ``md.cache``)."""
     key = ('chain', min_size)
     if key not in md.cache:
-        chain = [md]
-        while True:
-            NX, NY = chain[-1].grid[:2]
-            if NX % 2 or NY % 2 or NX // 2 < min_size or NY // 2 < min_size:
-                break
-            chain.append(coarsen_mesh(chain[-1]))
+        profiling.count('mesh_chain_builds')
+        with profiling.span('mesh_chain'):
+            chain = [md]
+            while True:
+                NX, NY = chain[-1].grid[:2]
+                if NX % 2 or NY % 2 or NX // 2 < min_size or \
+                        NY // 2 < min_size:
+                    break
+                chain.append(coarsen_mesh(chain[-1]))
         md.cache[key] = tuple(chain)
     return md.cache[key]
 
@@ -145,6 +149,7 @@ class MGLevel:
     kc_inv: torch.Tensor = None
 
 
+@profiling.spanned('coarse_inverse')
 def _dense_coarse_inv(level: MGLevel):
     """Dense SPD pseudo-inverse of the coarsest-level operator (identity
     rows on fixed dofs): Jacobi-equilibrated eigendecomposition with
@@ -314,6 +319,7 @@ def v_cycle(levels, b, lvl=0, nu=2):
     return _smooth(level, x, b, nu)
 
 
+@profiling.spanned('cg')
 def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
     """CG with a V-cycle preconditioner on the finest level.
 
@@ -329,11 +335,11 @@ def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
 
     Ax0 = apply_fn(x0)
     r = tuple(torch.where(f, 0., bi - ai) for f, bi, ai in zip(fix, b, Ax0))
-    bnorm = max(float(fek._norm(b)), 1e-30)
+    bnorm = max(profiling.host_read(fek._norm(b), 'cg'), 1e-30)
     b_f32 = r[0].dtype == torch.float32
     x, p, rz_prev = x0, None, None
     it, nstall = 0, 0
-    rn = best = float(fek._norm(r))
+    rn = best = profiling.host_read(fek._norm(r), 'cg')
     while rn > tol * bnorm and it < maxiter and nstall < 4:
         z = v_cycle(levels, r, nu=nu)
         rz = fek._dot(r, z)
@@ -344,7 +350,7 @@ def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
         r = tuple(torch.where(f, 0., ri - alpha * ai)
                   for f, ri, ai in zip(fix, r, Ap))
         # host read of the residual norm once per iteration (the exit test)
-        rn = float(fek._norm(r))
+        rn = profiling.host_read(fek._norm(r), 'cg')
         if b_f32:
             if rn < 0.95 * best:
                 nstall = 0
@@ -353,4 +359,6 @@ def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
         best = min(best, rn)
         rz_prev = rz
         it += 1
+    profiling.count('cg_solves')
+    profiling.count('cg_iters', it)
     return x, rn / bnorm, it

@@ -14,11 +14,12 @@ inclusion workloads instead (``workloads.inclusion_case``, the 2-D
 same steps.  Reports
 
 * per-phase wall time of the timed steps (multigrid hierarchy build, MG-CG
-  solve, return map + tangent update), each phase closed by a device
-  synchronise;
+  solve, return map + tangent update): the totals of the program's
+  ``hierarchy``, ``cg`` and ``return_map`` spans (``utils/profiling``'s
+  recorder, on for the run), the card synchronised at the ends of each;
 * a ``torch.profiler`` trace of one more warm step: device time by kernel,
   the number of kernel launches, and the device-busy share of the step's
-  wall time.
+  wall time (the union of the device operations' intervals).
 
 Writes ``profile_step[3d][_inclusion].json`` and the profiler table to
 ``--out``.
@@ -34,24 +35,15 @@ import torch
 from pylabfea_tpu_torch import convert, workloads
 from pylabfea_tpu_torch.ops import fe3d
 from pylabfea_tpu_torch.ops import fe_kernels as fek
+from pylabfea_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def _timed(fn, acc, key):
-    def wrapper(*args, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kw)
-        torch.cuda.synchronize()
-        acc[key] = acc.get(key, 0.) + time.perf_counter() - t0
-        return out
-    return wrapper
+#: the recorder's spans of the phases
+PHASES = ('hierarchy', 'cg', 'return_map')
 
 
 def _setup2(n, dev, inclusion=False):
-    """2-D path after its untimed step: (step function, phase functions of
-    ``fek`` by name)."""
+    """2-D path after its untimed step: the step function."""
     if inclusion:
         md, mat, CV = workloads.inclusion_case(n, torch.float32, dev)
     else:
@@ -67,7 +59,7 @@ def _setup2(n, dev, inclusion=False):
             md, carry['st'], mat, CV, 0.25, n_inner=2, du0=d['du'],
             kes0=d['kes'], dst0=d['dstiff'])
         return carry['d']
-    return step, (fek, ('_hier_kes', '_mg_solve', '_respond_and_update'))
+    return step
 
 
 def _setup3(n, dev, inclusion=False):
@@ -88,8 +80,7 @@ def _setup3(n, dev, inclusion=False):
     def step():
         return fe3d.load_step3(md, st, mat, CV, 0.3, n_inner=2,
                                du0=d0['du'])[1]
-    return step, (fe3d, ('build_hierarchy3', 'mg_cg_solve3',
-                         'respond_grouped3'))
+    return step
 
 
 def main():
@@ -103,32 +94,29 @@ def main():
         raise SystemExit('profile_step: needs a CUDA card')
     dev = torch.device('cuda', 0)
     n = args.n or (1024 if args.dim == 2 else 128)
-    step, (mod, names) = (_setup2 if args.dim == 2 else _setup3)(
-        n, dev, args.inclusion)
+    step = (_setup2 if args.dim == 2 else _setup3)(n, dev, args.inclusion)
     torch.cuda.synchronize()
 
-    phases = {}
-    orig = {k: getattr(mod, k) for k in names}
     steps = []
+    profiling.start()
     try:
-        for k, fn in orig.items():
-            setattr(mod, k, _timed(fn, phases, k))
         for _ in range(2):
             t0 = time.perf_counter()
             d = step()
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
-    finally:
-        for k, fn in orig.items():
-            setattr(mod, k, fn)
+        spans = profiling.summary()
+        phases = {k: spans[k]['total_s'] for k in PHASES if k in spans}
 
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        d = step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            d = step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        profiling.stop()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in events)
@@ -139,7 +127,7 @@ def main():
         'card': torch.cuda.get_device_name(0),
         'steps_s': steps, 'phase_s_over_2_steps': phases,
         'profiled_step_wall_s': wall, 'profiled_step_device_s': dev_us * 1e-6,
-        'device_busy_share': dev_us * 1e-6 / wall,
+        'device_busy_share': profiling.device_busy_s(prof) / wall,
         'device_kernel_launches': launches,
         'cg_iters_hist': [int(x) for x in d['cg_iters_hist']],
         'top_kernels': [{'name': e.key[:90], 'count': e.count,
