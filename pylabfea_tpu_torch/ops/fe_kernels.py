@@ -304,10 +304,6 @@ def _gather_planes(md: MeshData, v):
     return st.gather_planes(v, *md.grid[:2])
 
 
-def _scatter_planes(md: MeshData, fp):
-    return st.scatter_planes(fp, *md.grid[:2])
-
-
 def elstiff_planes(md: MeshData, elstiff):
     """Tangent field in planes layout (36, NX, NY); rows (Nel, 6, 6) are
     transposed, planes pass through."""
@@ -326,21 +322,6 @@ def element_stiffness_planes(md: MeshData, elstiff):
     M = md.jacw * torch.einsum('gai,gbj->ijab', md.B, md.B)
     Ke = M.reshape(64, 36) @ els.reshape(36, NX * NY)
     return Ke.reshape(8, 8, NX, NY)
-
-
-def k_apply_t(md: MeshData, Kp, v, fixed):
-    """K v on plane tuples with identity rows on fixed dofs.  The apply is
-    kernel B on the card at every grid level (the plain version on the
-    CPU); the masking stays outside the kernel."""
-    vm = tuple(torch.where(f, 0., x) for f, x in zip(fixed, v))
-    out = st.k_apply(Kp, vm[0], vm[1])
-    return tuple(torch.where(f, x, o) for f, x, o in zip(fixed, v, out))
-
-
-def k_diag_t(md: MeshData, Kp, fixed):
-    """Diagonal of K as a plane tuple, 1 on fixed dofs."""
-    d = _scatter_planes(md, tuple(Kp[i, i] for i in range(8)))
-    return tuple(torch.where(f, 1., x) for f, x in zip(fixed, d))
 
 
 def _dot(a, b):
@@ -618,17 +599,13 @@ def _mg_solve(md: MeshData, kes, bc_val, force, cg_tol, cg_maxiter, x0):
     with profiling.span('hierarchy'):
         profiling.count('hierarchy_builds')
         levels = mg.levels_from_kes(md, kes)
-    fixT = _split(md.fixed)
-    bcT = _split(bc_val)
-    du_bc = tuple(torch.where(f, b, 0.) for f, b in zip(fixT, bcT))
-    neg = st.k_apply(kes[0], du_bc[0], du_bc[1])
-    rhs = tuple(torch.where(f, b, fr - q)
-                for f, b, fr, q in zip(fixT, bcT, _split(force), neg))
-    start = tuple(torch.where(f, b, x)
-                  for f, b, x in zip(fixT, bcT, _split(x0)))
-    duT, res, it = mg.mg_cg_solve(levels, rhs, start, tol=cg_tol,
-                                  maxiter=min(cg_maxiter, 100))
-    return _merge(duT), res, it
+    fix = md.fixed
+    du_bc = torch.where(fix, bc_val, 0.)
+    neg = torch.stack(st.k_apply(kes[0], du_bc[0], du_bc[1]))
+    rhs = torch.where(fix, bc_val, force - neg)
+    start = torch.where(fix, bc_val, x0)
+    return mg.mg_cg_solve(levels, rhs, start, tol=cg_tol,
+                          maxiter=min(cg_maxiter, 100))
 
 
 def _residual_f64_grid(md: MeshData, M64, elstiff, du64, force):

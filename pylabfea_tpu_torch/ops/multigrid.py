@@ -7,8 +7,11 @@ and prolongation are the separable full-weighting matrices (``restrict_mm``
 / ``prolong_mm``); smoothing is damped Jacobi or, with ``SMOOTHER =
 'chebyshev'``, a Chebyshev polynomial in D^-1 K; the coarsest level (at most
 ``COARSE_DENSE_MAX`` dofs) is solved exactly with a dense pseudo-inverse.
-Every stiffness apply goes through ``fe_kernels.k_apply_t`` (kernel B on
-the card).  The V-cycle is symmetric, so it preconditions CG.
+Every nodal vector is one stacked (2, nnX, nnY) tensor of both displacement
+planes, so each elementwise step, mask, transfer and reduction is one
+operation for both; every stiffness apply is one call of ``stencil.k_apply``
+(kernel B on the card) on its two planes.  Inside the V-cycle every vector
+is 0 on fixed dofs.  The V-cycle is symmetric, so it preconditions CG.
 """
 import dataclasses
 from dataclasses import dataclass
@@ -23,9 +26,11 @@ from pylabfea_tpu_torch.utils import profiling
 #: exact dense bottom solve when the coarsest level has at most this many
 #: dofs (min_size=8 -> 162)
 COARSE_DENSE_MAX = 700
-#: smoother selection: 'jacobi' (damped, omega=0.7) or 'chebyshev'
+#: smoother selection: 'jacobi' (damped by OMEGA) or 'chebyshev'
 #: (degree-nu polynomial on D^-1 K, eigenvalue interval [lmax/4, lmax])
 SMOOTHER = 'jacobi'
+#: damping of the Jacobi smoother
+OMEGA = 0.7
 
 
 def coarsen_mesh(md: fek.MeshData):
@@ -121,32 +126,58 @@ def _transfer_mats(md: fek.MeshData):
 
 
 def restrict_mm(fine, W):
-    """Restriction Wx @ p @ Wy^T on plane tuples (the exact transpose of
-    ``prolong_mm``, weights 1, 1/2, 1/4)."""
+    """Restriction Wx @ p @ Wy^T of stacked planes (2, nnX, nnY), both in
+    one matmul pair (the exact transpose of ``prolong_mm``, weights 1, 1/2,
+    1/4)."""
     Wx, Wy = W
-    return tuple(Wx @ p @ Wy.T for p in fine)
+    return Wx @ fine @ Wy.T
 
 
 def prolong_mm(coarse, W):
-    """Bilinear prolongation Wx^T @ p @ Wy on plane tuples; ``W`` is the
+    """Bilinear prolongation Wx^T @ p @ Wy of stacked planes; ``W`` is the
     fine level's restriction pair."""
     Wx, Wy = W
-    return tuple(Wx.T @ p @ Wy for p in coarse)
+    return Wx.T @ coarse @ Wy
 
 
 @dataclass
 class MGLevel:
-    """One level: mesh, element stiffness planes, Jacobi diagonal and BC
-    mask (plane tuples), restriction pair of its node grid, the estimate
-    of lambda_max(D^-1 K) of the Chebyshev smoother (None under Jacobi);
+    """One level: mesh, element stiffness planes, and as stacked (2, nnX,
+    nnY) planes the Jacobi diagonal, the BC mask, the free-dof weight (1 on
+    free dofs, 0 on fixed ones) and the damped-Jacobi factor OMEGA / diag;
+    the restriction pair of its node grid; under the Chebyshev smoother
+    the estimate of lambda_max(D^-1 K) and 1 / diag (None under Jacobi);
     the coarsest level may carry the dense inverse of its operator."""
     md: fek.MeshData
     Ke: torch.Tensor
-    diag: tuple
-    fixed: tuple
+    diag: torch.Tensor
+    fixed: torch.Tensor
+    free: torch.Tensor
+    jinv: torch.Tensor
     W: tuple
     lmax: torch.Tensor = None
+    cinv: torch.Tensor = None
     kc_inv: torch.Tensor = None
+
+
+def _dot(a, b):
+    """Dot product of stacked planes: one reduction."""
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def _kx(level: MGLevel, v):
+    """K v by kernel B for stacked planes ``v`` that hold 0 on fixed dofs.
+    The rows of fixed dofs are K's own: callers zero them (``level.free``
+    weights) or replace them."""
+    o0, o1 = st.k_apply(level.Ke, v[0], v[1])
+    return torch.stack((o0, o1))
+
+
+def _apply(level: MGLevel, v):
+    """K v with identity rows on fixed dofs, the entries of ``v`` on fixed
+    dofs left out of the product."""
+    return torch.where(level.fixed, v,
+                       _kx(level, v.masked_fill(level.fixed, 0.)))
 
 
 @profiling.spanned('coarse_inverse')
@@ -158,16 +189,13 @@ def _dense_coarse_inv(level: MGLevel):
     a grid of at most ``COARSE_DENSE_MAX`` dofs)."""
     md = level.md
     NX, NY = md.grid[:2]
-    nnX, nnY = NX + 1, NY + 1
-    m = nnX * nnY
-    n = 2 * m
-    eye = torch.eye(n, dtype=level.Ke.dtype, device=level.Ke.device)
-    v = (eye[:, :m].reshape(n, nnX, nnY), eye[:, m:].reshape(n, nnX, nnY))
-    vm = tuple(torch.where(f, 0., x) for f, x in zip(level.fixed, v))
+    n = 2 * (NX + 1) * (NY + 1)
+    v = torch.eye(n, dtype=level.Ke.dtype, device=level.Ke.device).reshape(
+        n, 2, NX + 1, NY + 1)
+    vm = v.masked_fill(level.fixed, 0.)
     out = st.scatter_planes(st.contract_planes(
-        level.Ke, st.gather_planes(vm, NX, NY)), NX, NY)
-    o = tuple(torch.where(f, x, y) for f, x, y in zip(level.fixed, v, out))
-    K = torch.cat([o[0].reshape(n, m), o[1].reshape(n, m)], dim=1)
+        level.Ke, st.gather_planes(vm.unbind(1), NX, NY)), NX, NY)
+    K = torch.where(level.fixed, v, torch.stack(out, 1)).reshape(n, n)
     s = torch.rsqrt(torch.clamp(torch.diagonal(K), min=1e-30))
     Ks = s[:, None] * K * s[None, :]
     # symmetrize as jnp.linalg.eigh does with its input
@@ -189,27 +217,27 @@ def _make_level(cur_md, Ke):
     an odd element count is the coarsest (``mesh_chain`` stops there) and
     gets no restriction pair, which needs even counts (the JAX package
     builds the pair only when it restricts)."""
-    fixT = fek._split(cur_md.fixed)
+    fixed = cur_md.fixed
     NX, NY = cur_md.grid[:2]
     W = None if NX % 2 or NY % 2 else _transfer_mats(cur_md)
-    diag = fek.k_diag_t(cur_md, Ke, fixT)
-    lmax = None
+    diag = torch.stack(st.scatter_planes(
+        tuple(Ke[i, i] for i in range(8)), NX, NY)).masked_fill_(fixed, 1.)
+    level = MGLevel(cur_md, Ke, diag, fixed, (~fixed).to(Ke.dtype),
+                    OMEGA / diag, W)
     if SMOOTHER == 'chebyshev':
+        level.cinv = 1. / diag
         # 10 power iterations for lambda_max(D^-1 K) from the JAX
         # package's deterministic start
         i = torch.arange((NX + 1) * (NY + 1), dtype=Ke.dtype,
                          device=Ke.device).reshape(NX + 1, NY + 1)
-        v = tuple(torch.sin(i * (0.37 + 0.11 * c)) + 0.01 for c in range(2))
-        minv = tuple(1. / d for d in diag)
+        v = torch.stack([torch.sin(i * (0.37 + 0.11 * c)) + 0.01
+                         for c in range(2)])
         for _ in range(10):
-            w = fek.k_apply_t(cur_md, Ke, v, fixT)
-            w = tuple(m * x for m, x in zip(minv, w))
-            nrm = torch.clamp(fek._norm(w), min=1e-30)
-            v = tuple(x / nrm for x in w)
-        Av = fek.k_apply_t(cur_md, Ke, v, fixT)
-        Av = tuple(m * x for m, x in zip(minv, Av))
-        lmax = fek._dot(v, Av) / torch.clamp(fek._dot(v, v), min=1e-30)
-    return MGLevel(cur_md, Ke, diag, fixT, W, lmax)
+            w = level.cinv * _apply(level, v)
+            v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
+        Av = level.cinv * _apply(level, v)
+        level.lmax = _dot(v, Av) / torch.clamp(_dot(v, v), min=1e-30)
+    return level
 
 
 def build_hierarchy(md: fek.MeshData, elstiff, min_size=8, attach_inv=True):
@@ -254,74 +282,63 @@ def levels_from_kes(md: fek.MeshData, kes):
     return levels
 
 
-def _smooth(level: MGLevel, x, b, nu, omega=0.7, zero_start=False):
+def _smooth(level: MGLevel, x, b, nu, zero_start=False):
     """``nu`` smoothing sweeps on K x = b: damped Jacobi, or with
     ``SMOOTHER = 'chebyshev'`` a degree-``nu`` Chebyshev polynomial in
     D^-1 K on [1.1 lmax / 4, 1.1 lmax] (the 3-D ``fe3d._smooth3``).
-    ``zero_start=True`` means x == 0 (``x`` may be None), so the first
-    residual is b (Chebyshev) or the first sweep x = omega D^-1 b
-    (Jacobi), without an apply."""
+    ``b`` and ``x`` hold 0 on fixed dofs, and so does the result: each
+    residual weights K x by ``level.free``.  ``zero_start=True`` means
+    x == 0 (``x`` may be None), so the first residual is b (Chebyshev) or
+    the first sweep x = OMEGA D^-1 b (Jacobi), without an apply."""
     if SMOOTHER == 'chebyshev' and level.lmax is not None:
-        minv = tuple(1. / d for d in level.diag)
         lmax = 1.1 * level.lmax
         lmin = lmax / 4.
         theta = 0.5 * (lmax + lmin)
         delta = 0.5 * (lmax - lmin)
         sigma = theta / delta
-        if zero_start:
-            r = b
-        else:
-            Kx = fek.k_apply_t(level.md, level.Ke, x, level.fixed)
-            r = tuple(bi - ki for bi, ki in zip(b, Kx))
-        d = tuple(m * ri / theta for m, ri in zip(minv, r))
+        r = b if zero_start else \
+            torch.addcmul(b, level.free, _kx(level, x), value=-1)
+        d = level.cinv * r / theta
         rho = 1. / sigma
         for _ in range(max(nu, 1)):
-            x = d if x is None else tuple(xi + di for xi, di in zip(x, d))
-            Kd = fek.k_apply_t(level.md, level.Ke, d, level.fixed)
-            # k_apply_t returns d on fixed dofs: keep the residual 0 there
-            r = tuple(torch.where(f, 0., ri - ki)
-                      for f, ri, ki in zip(level.fixed, r, Kd))
+            x = d if x is None else x + d
+            r = torch.addcmul(r, level.free, _kx(level, d), value=-1)
             rho_new = 1. / (2. * sigma - rho)
-            d = tuple(rho_new * rho * di + 2. * rho_new / delta * m * ri
-                      for di, m, ri in zip(d, minv, r))
+            d = rho_new * rho * d + 2. * rho_new / delta * level.cinv * r
             rho = rho_new
         return x
-    minv = tuple(omega / d for d in level.diag)
     if zero_start:
-        x = tuple(m * bi for m, bi in zip(minv, b))
+        x = level.jinv * b
         nu = nu - 1
     for _ in range(nu):
-        Kx = fek.k_apply_t(level.md, level.Ke, x, level.fixed)
-        x = tuple(xi + m * (bi - ki) for xi, m, bi, ki in zip(x, minv, b, Kx))
+        x = torch.addcmul(x, level.jinv, torch.addcmul(
+            b, level.free, _kx(level, x), value=-1))
     return x
 
 
 def v_cycle(levels, b, lvl=0, nu=2):
-    """One symmetric V-cycle solving K e = b approximately from zero."""
+    """One symmetric V-cycle solving K e = b approximately from zero, on
+    stacked planes; e is 0 on fixed dofs."""
     level = levels[lvl]
-    fix = level.fixed
-    b = tuple(torch.where(f, 0., bi) for f, bi in zip(fix, b))
+    b = b.masked_fill(level.fixed, 0.)
     if lvl == len(levels) - 1:
         if level.kc_inv is not None:
-            nnX, nnY = b[0].shape
-            x = level.kc_inv @ torch.cat([b[0].reshape(-1), b[1].reshape(-1)])
-            m = nnX * nnY
-            return (x[:m].reshape(nnX, nnY), x[m:].reshape(nnX, nnY))
+            # the dense inverse leaves round-off on fixed dofs
+            x = level.kc_inv @ b.reshape(-1)
+            return x.reshape(b.shape).masked_fill_(level.fixed, 0.)
         return _smooth(level, None, b, 8 * nu, zero_start=True)
     x = _smooth(level, None, b, nu, zero_start=True)
-    Kx = fek.k_apply_t(level.md, level.Ke, x, fix)
-    r = tuple(torch.where(f, 0., bi - ki) for f, bi, ki in zip(fix, b, Kx))
-    ec = v_cycle(levels, restrict_mm(r, level.W), lvl + 1, nu)
-    ec = tuple(torch.where(f, 0., ei)
-               for f, ei in zip(levels[lvl + 1].fixed, ec))
-    e = prolong_mm(ec, level.W)
-    x = tuple(xi + torch.where(f, 0., ei) for xi, f, ei in zip(x, fix, e))
-    return _smooth(level, x, b, nu)
+    r = torch.addcmul(b, level.free, _kx(level, x), value=-1)
+    e = prolong_mm(v_cycle(levels, restrict_mm(r, level.W), lvl + 1, nu),
+                   level.W)
+    return _smooth(level, torch.addcmul(x, level.free, e), b, nu)
 
 
 @profiling.spanned('cg')
 def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
-    """CG with a V-cycle preconditioner on the finest level.
+    """CG with a V-cycle preconditioner on the finest level, ``b`` and
+    ``x0`` stacked (2, nnX, nnY) planes (``x0`` holds the prescribed values
+    on fixed dofs, which stay).
 
     Exits at ``|r| <= tol |b|``, at ``maxiter``, or (float32 only) after
     4 consecutive iterations below 1e-3 relative that improve the best
@@ -329,28 +346,24 @@ def mg_cg_solve(levels, b, x0, tol=1.e-8, maxiter=200, nu=2):
     work makes no progress.  Returns (x, relative residual, iterations)."""
     level = levels[0]
     fix = level.fixed
-
-    def apply_fn(v):
-        return fek.k_apply_t(level.md, level.Ke, v, fix)
-
-    Ax0 = apply_fn(x0)
-    r = tuple(torch.where(f, 0., bi - ai) for f, bi, ai in zip(fix, b, Ax0))
-    bnorm = max(profiling.host_read(fek._norm(b), 'cg'), 1e-30)
-    b_f32 = r[0].dtype == torch.float32
+    r = (b - _apply(level, x0)).masked_fill_(fix, 0.)
+    bnorm = max(profiling.host_read(torch.linalg.vector_norm(b), 'cg'), 1e-30)
+    b_f32 = r.dtype == torch.float32
     x, p, rz_prev = x0, None, None
     it, nstall = 0, 0
-    rn = best = profiling.host_read(fek._norm(r), 'cg')
+    rn = best = profiling.host_read(torch.linalg.vector_norm(r), 'cg')
     while rn > tol * bnorm and it < maxiter and nstall < 4:
         z = v_cycle(levels, r, nu=nu)
-        rz = fek._dot(r, z)
-        p = z if it == 0 else fek._axpy(rz / rz_prev, p, z)
-        Ap = apply_fn(p)
-        alpha = rz / fek._dot(p, Ap)
-        x = fek._axpy(alpha, p, x)
-        r = tuple(torch.where(f, 0., ri - alpha * ai)
-                  for f, ri, ai in zip(fix, r, Ap))
+        rz = _dot(r, z)
+        p = z if it == 0 else torch.addcmul(z, rz / rz_prev, p)
+        # identity rows on fixed dofs, where p (as z and r) is 0: r stays
+        # 0 there without a mask
+        Ap = torch.where(fix, p, _kx(level, p))
+        alpha = rz / _dot(p, Ap)
+        x = torch.addcmul(x, alpha, p)
+        r = torch.addcmul(r, alpha, Ap, value=-1)
         # host read of the residual norm once per iteration (the exit test)
-        rn = profiling.host_read(fek._norm(r), 'cg')
+        rn = profiling.host_read(torch.linalg.vector_norm(r), 'cg')
         if b_f32:
             if rn < 0.95 * best:
                 nstall = 0

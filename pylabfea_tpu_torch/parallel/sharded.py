@@ -238,11 +238,10 @@ def make_schwarz_mg(sm: StripMesh, min_size=8):
         levels = mg.build_hierarchy(md_d, el_loc, min_size=min_size)
 
         def precon(r):
-            z = mg.v_cycle(levels, tuple(torch.where(f, 0., x)
-                                         for f, x in zip(fix, r)))
-            # the Jacobi patch on the interfaces; on globally fixed dofs
-            # (r = 0 there) it gives the exact 0 where the V-cycle's dense
-            # bottom inverse leaves round-off
+            # the V-cycle takes stacked planes and zeroes the fixed dofs
+            z = mg.v_cycle(levels, torch.stack(r))
+            # the Jacobi patch on the interfaces (0 on globally fixed
+            # dofs, where r = 0)
             return tuple(torch.where(f, x / d, y)
                          for f, x, d, y in zip(fix, r, diag, z))
         return precon

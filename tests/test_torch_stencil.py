@@ -13,6 +13,7 @@ import torch
 from pylabfea_tpu.ops import fe_kernels as jfek
 from pylabfea_tpu.ops.stencil_pallas import k_apply_stencil
 from pylabfea_tpu_torch.ops import fe_kernels as tfek
+from pylabfea_tpu_torch.ops import multigrid as tmg
 from pylabfea_tpu_torch.ops import stencil
 
 # One torch thread: the suite runs several test processes at once, and
@@ -71,7 +72,9 @@ def test_element_stiffness_planes_match_jax_f64():
 
 
 def test_masked_apply_and_diagonal_match_jax_f64():
-    """k_apply_t / k_diag_t with displacement and force BCs, 1e-12."""
+    """The multigrid level's masked apply and diagonal (stacked planes)
+    against JAX's k_apply_t / k_diag_t, displacement and force BCs,
+    1e-12."""
     NX, NY = 12, 10
     md, mt = _meshes(NX, NY)
     rng = np.random.default_rng(2)
@@ -83,11 +86,10 @@ def test_masked_apply_and_diagonal_match_jax_f64():
     assert fixed.sum() > 0
     oj = jfek.k_apply_t(md, Kj, jfek._split(jnp.asarray(v)),
                         jfek._split(md.fixed))
-    ot = tfek.k_apply_t(mt, Kt, tfek._split(torch.tensor(v)),
-                        tfek._split(mt.fixed))
+    level = tmg._make_level(mt, Kt)
+    ot = tmg._apply(level, torch.tensor(v))
     dj = jfek.k_diag_t(md, Kj, jfek._split(md.fixed))
-    dt = tfek.k_diag_t(mt, Kt, tfek._split(mt.fixed))
-    for a, b in zip(ot + dt, oj + dj):
+    for a, b in zip(tuple(ot) + tuple(level.diag), oj + dj):
         _close(a.numpy(), b, 1e-12)
 
 
